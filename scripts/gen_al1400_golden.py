@@ -3,8 +3,8 @@
 Solves `tasks/al_bench.build_al1400` (the reference's
 main_SE3ddp_tracking_exact_al_ms.py workload) with the line-searched AL
 engine at float64 and writes the converged controls + the solve metadata
-to tasks/golden/al1400_us.npy — the lane-0 accuracy anchor for
-scripts/probe_al1400_tpu.py.
+to tasks/golden/al1400_us.npy — the lane-0 accuracy anchor of the N=1400
+constrained problem.
 """
 import json
 import os
@@ -21,20 +21,20 @@ jax.config.update("jax_enable_x64", True)
 import numpy as np
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.models import (
+from trajectory_optimization_matrix_lie_groups.models import (
     constraints as cs,
     costs,
     dynamics,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.models.base import make_model
-from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.al_fast import (
+from trajectory_optimization_matrix_lie_groups.models.base import make_model
+from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+from trajectory_optimization_matrix_lie_groups.solvers.al_fast import (
     ALFastSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import (
+from trajectory_optimization_matrix_lie_groups.solvers.batched import (
     FastBatchSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.tasks.al_bench import (
+from trajectory_optimization_matrix_lie_groups.tasks.al_bench import (
     build_al1400,
 )
 
@@ -55,7 +55,7 @@ alp = costs.al_init_params(params["cost"], constr_p, H, constr.constr_size,
 # clean convergence to grad ~ 1e-16 in <= 16 iterations — the
 # unconstrained optimum needs |u| ~ 104, so the box MUST bind and the AL
 # outers do the work).
-inner = FastBatchSolver(model, N=H, iterations=40, use_pallas=False)
+inner = FastBatchSolver(model, N=H, iterations=40)
 al = ALFastSolver(inner, constr)
 
 res = al.solve({"dyn": params["dyn"], "cost": alp},
@@ -71,7 +71,7 @@ meta = dict(H=H, J=float(res.J_opt[0]),
 print(json.dumps(meta))
 assert meta["converged"], meta
 gd = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                  "trajectory_optimization_matrix_lie_groups_tpu", "tasks",
+                  "trajectory_optimization_matrix_lie_groups", "tasks",
                   "golden")
 np.save(os.path.join(gd, f"al{H}_us.npy"), us)
 with open(os.path.join(gd, f"al{H}_meta.json"), "w") as f:

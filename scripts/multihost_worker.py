@@ -1,9 +1,10 @@
 """Worker for tests/test_multihost.py: one process of a 2-process CPU job.
 
-Each process exposes 4 virtual CPU devices; together they form an 8-device
-global mesh.  The worker runs the sharded Pallas pipeline (interpret mode)
-on its batch shard, all-gathers the controls, and process 0 compares them
-against a local single-process solve of the same problems.
+Each process exposes 4 virtual CPU devices (the workers are pinned to the
+CPU: they never open an accelerator); together they form an 8-device
+global mesh.  The worker runs the sharded pipeline on its batch shard,
+all-gathers the controls, and process 0 compares them against a local
+single-process solve of the same problems.
 
 Invocation: python scripts/multihost_worker.py <coordinator> <nprocs> <pid>
 Prints "MULTIHOST_OK <max_err>" on success (process 0).
@@ -25,14 +26,12 @@ jax.config.update("jax_enable_x64", True)
 
 coordinator, nprocs, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 
-from trajectory_optimization_matrix_lie_groups_tpu import parallel
-from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.pipeline import (
-    PallasPipelineSolver,
+from trajectory_optimization_matrix_lie_groups import parallel
+from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+from trajectory_optimization_matrix_lie_groups.solvers.pipeline import (
+    PipelineSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
-    build_benchmark,
-)
+from trajectory_optimization_matrix_lie_groups.tasks import se3_bench
 
 parallel.initialize_multihost(coordinator, nprocs, pid)
 assert len(jax.devices()) == 4 * nprocs, jax.devices()
@@ -40,12 +39,9 @@ mesh = parallel.global_batch_mesh()
 
 import jax.numpy as jnp
 
-data, solver, params, x0, us0, _ = build_benchmark("se3_tracking", True)
 H, B_GLOBAL, ITERS = 12, 16, 2
+_, params, _, _, _, _ = se3_bench.build_problem(jnp.float64, H)
 cp = params["cost"]
-cut = lambda a: a[: H + 1]
-cp = cp._replace(q_ref=cut(cp.q_ref), q_ref_inv=cut(cp.q_ref_inv),
-                 Ad_ref=cut(cp.Ad_ref), xi_ref=cut(cp.xi_ref))
 dp = params["dyn"]
 
 # identical global problem set on every process (seeded)
@@ -61,15 +57,13 @@ q0s = parallel.distribute_batch(q0s_all[sl], mesh)
 xi0s = parallel.distribute_batch(xi0s_all[sl], mesh)
 us0 = parallel.distribute_batch(us0_all[sl], mesh)
 
-pipe = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                            interpret=True)
+pipe = PipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt))
 sharded = parallel.ShardedPipelineSolver(pipe, mesh)
 out = sharded.solve(dp, cp, q0s, xi0s, us0)
 us_global = parallel.gather_to_all(out.us)
 
 if pid == 0:
-    single = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                                  interpret=True)
+    single = PipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt))
     ref = single.solve(dp, cp, jnp.asarray(q0s_all),
                        jnp.asarray(xi0s_all), jnp.asarray(us0_all))
     err = float(np.max(np.abs(us_global - np.asarray(ref.us))))

@@ -7,18 +7,18 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.models import (
+from trajectory_optimization_matrix_lie_groups.models import (
     constraints as cs,
     costs,
     dynamics,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.models.base import make_model
-from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.al_fast import ALFastSolver
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import (
+from trajectory_optimization_matrix_lie_groups.models.base import make_model
+from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+from trajectory_optimization_matrix_lie_groups.solvers.al_fast import ALFastSolver
+from trajectory_optimization_matrix_lie_groups.solvers.batched import (
     FastBatchSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.utils import load_benchmark_pickle
+from trajectory_optimization_matrix_lie_groups.utils import load_benchmark_pickle
 
 PKL = "/root/reference/visualization/results_benchmark_2nd_draft/results_se3_tracking_benchmark.pkl"
 
@@ -44,7 +44,7 @@ def test_al_fast_batched_input_box():
 
     # unconstrained batched solve: must violate the box for every problem
     model_u, params_u = make_model(dyn, cd, dp, cp)
-    unc = FastBatchSolver(model_u, N=H, iterations=25, use_pallas=False)
+    unc = FastBatchSolver(model_u, N=H, iterations=25)
     st_u = unc.solve(params_u, q0s, xi0s, us0, q_ref, xi_ref)
     lb, ub = -100.0, 100.0
     per_prob_max = jnp.max(jnp.abs(st_u.us), axis=(1, 2))
@@ -56,7 +56,7 @@ def test_al_fast_batched_input_box():
     al_cd = costs.al_cost(cd, constr)
     model_c, _ = make_model(dyn, al_cd, dp, None)
     alp = costs.al_init_params(cp, constr_p, H, constr.constr_size, mu0=1e-2)
-    inner = FastBatchSolver(model_c, N=H, iterations=25, use_pallas=False)
+    inner = FastBatchSolver(model_c, N=H, iterations=25)
     al = ALFastSolver(inner, constr, tol_constr=1e-2)
     res = al.solve({"dyn": dp, "cost": alp}, q0s, xi0s, us0,
                    q_ref=q_ref, xi_ref=xi_ref, n_al_iters=15)
@@ -107,7 +107,7 @@ def test_al_fast_rescue_hard_lane():
     xi0s = jnp.broadcast_to(xi_ref[0], (2, 6)) + 0.05
     us0 = jnp.zeros((2, H, 6))
 
-    inner = FastBatchSolver(model_c, N=H, iterations=25, use_pallas=False)
+    inner = FastBatchSolver(model_c, N=H, iterations=25)
     al = ALFastSolver(inner, constr, tol_constr=1e-2)
     res0 = al.solve({"dyn": dp, "cost": alp}, q0s, xi0s, us0,
                     q_ref=q_ref, xi_ref=xi_ref, n_al_iters=15)

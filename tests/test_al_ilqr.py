@@ -11,19 +11,19 @@ import pytest
 
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.models import (
+from trajectory_optimization_matrix_lie_groups.models import (
     constraints as cs,
     costs,
     dynamics,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.models.base import make_model
-from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.al_ilqr import ALILQR
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.lie_ilqr import (
+from trajectory_optimization_matrix_lie_groups.models.base import make_model
+from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+from trajectory_optimization_matrix_lie_groups.solvers.al_ilqr import ALILQR
+from trajectory_optimization_matrix_lie_groups.solvers.lie_ilqr import (
     LieILQR,
     SolverConfig,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.utils import load_benchmark_pickle
+from trajectory_optimization_matrix_lie_groups.utils import load_benchmark_pickle
 
 PKL = "/root/reference/visualization/results_benchmark_2nd_draft/results_se3_tracking_benchmark.pkl"
 

@@ -1,5 +1,4 @@
-"""Constrained pipeline solves: ALPipelineSolver == ALFastSolver (interpret
-mode on CPU; on TPU the same code runs the real kernels)."""
+"""Constrained pipeline solves: ALPipelineSolver == ALFastSolver."""
 
 import numpy as np
 import pytest
@@ -7,24 +6,24 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.models import (
+from trajectory_optimization_matrix_lie_groups.models import (
     constraints as cs,
     costs,
     dynamics,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.models.base import make_model
-from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.al_fast import ALFastSolver
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.al_pipeline import (
+from trajectory_optimization_matrix_lie_groups.models.base import make_model
+from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+from trajectory_optimization_matrix_lie_groups.solvers.al_fast import ALFastSolver
+from trajectory_optimization_matrix_lie_groups.solvers.al_pipeline import (
     ALPipelineSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import (
+from trajectory_optimization_matrix_lie_groups.solvers.batched import (
     FastBatchSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.pipeline import (
-    PallasPipelineSolver,
+from trajectory_optimization_matrix_lie_groups.solvers.pipeline import (
+    PipelineSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.utils import load_benchmark_pickle
+from trajectory_optimization_matrix_lie_groups.utils import load_benchmark_pickle
 
 PKL = ("/root/reference/visualization/results_benchmark_2nd_draft/"
        "results_se3_tracking_benchmark.pkl")
@@ -63,13 +62,12 @@ def test_al_pipeline_matches_al_fast():
                             cs.input_box_params(lb, ub, 6))
     alp = costs.al_init_params(cp, constr_p, H, constr.constr_size,
                                mu0=1e-2, dtype=jnp.float32)
-    inner = FastBatchSolver(model_c, N=H, iterations=ITERS, use_pallas=False)
+    inner = FastBatchSolver(model_c, N=H, iterations=ITERS)
     ref = ALFastSolver(inner, constr, tol_constr=1e-2).solve(
         {"dyn": dp, "cost": alp}, q0s, xi0s, us0,
         q_ref=q_ref, xi_ref=xi_ref, n_al_iters=10)
 
-    pipe = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(prob["dt"]),
-                                interpret=jax.default_backend() != "tpu")
+    pipe = PipelineSolver(N=H, iterations=ITERS, dt=float(prob["dt"]))
     alp_pipe = ALPipelineSolver(pipe, lb=np.full(6, lb), ub=np.full(6, ub),
                                 tol_constr=1e-2)
     res = alp_pipe.solve(dp, cp, q0s, xi0s, us0, n_al_iters=10)
@@ -92,14 +90,14 @@ def test_al_pipeline_matches_al_fast():
 def test_constrained_batch_mpc_matches_host_loop():
     """make_closed_loop_batch_constrained == a host loop of the same fixed
     AL outer iterations around pipe._solve, windows sliced by hand."""
-    from trajectory_optimization_matrix_lie_groups_tpu.models.base import (
+    from trajectory_optimization_matrix_lie_groups.models.base import (
         LieModel,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.mpc import (
+    from trajectory_optimization_matrix_lie_groups.solvers.mpc import (
         _window,
         make_closed_loop_batch_constrained,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
+    from trajectory_optimization_matrix_lie_groups.tasks.parity import (
         build_benchmark,
     )
 
@@ -115,9 +113,8 @@ def test_constrained_batch_mpc_matches_host_loop():
     q0s = SE3.normalize(cp.q_ref[0][None] @ SE3.exp(dq))
     xi0s = jnp.broadcast_to(cp.xi_ref[0], (B, 6)) + jnp.float32(0.3)
 
-    pipe = PallasPipelineSolver(N=H, iterations=ITERS,
-                                dt=float(data["prob"]["dt"]),
-                                interpret=jax.default_backend() != "tpu")
+    pipe = PipelineSolver(N=H, iterations=ITERS,
+                                dt=float(data["prob"]["dt"]))
     run = make_closed_loop_batch_constrained(pipe, model, T, lb, ub,
                                              n_al_iters=NAL)
     res, maxv = run(dp, cp, q0s, xi0s)
@@ -187,8 +184,7 @@ def test_al_pipeline_warm_start_agrees_with_cold():
     us0 = jnp.zeros((B, H, 6), jnp.float32)
     lb, ub = -100.0, 100.0
 
-    pipe = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(prob["dt"]),
-                                interpret=jax.default_backend() != "tpu")
+    pipe = PipelineSolver(N=H, iterations=ITERS, dt=float(prob["dt"]))
     al = ALPipelineSolver(pipe, lb=np.full(6, lb), ub=np.full(6, ub),
                           tol_constr=1e-2)
     cold = al.solve(dp, cp, q0s, xi0s, us0, n_al_iters=10)
@@ -208,7 +204,7 @@ def test_al_pipeline_warm_start_agrees_with_cold():
     # along the solved trajectory.  The flat-direction control differences
     # (warm vs cold us may differ by the full box width at R ~ 1e-5) must
     # not degrade tracking: warm's mean error within 5% of cold's.
-    from trajectory_optimization_matrix_lie_groups_tpu.ops import se3 as se3o
+    from trajectory_optimization_matrix_lie_groups.ops import se3 as se3o
 
     def track_err(qs):
         qri = jax.vmap(se3o.inverse)(q_ref)
@@ -227,14 +223,13 @@ def test_al_mixed_polish_refines_active_set_to_f64():
     ACTIVE box: warm-started at the f32 AL solution with its (lmbd, imu),
     `MixedDFPipelineSolver.solve(..., al=...)` minimizes the augmented
     Lagrangian and must land within 1e-4 of the f64 AL oracle — where the
-    f32 AL solve alone is ~1e-3 away.  (The unconstrained polish DIVERGES
-    on active-set problems — measured 94.5 max err on the N=1400 AL
-    problem, records name=ref_scale_al1400 2026-08-21 — so this gate is
-    what makes constrained reference-scale accuracy possible.)"""
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.df_mixed import (
+    f32 AL solve alone is ~1e-3 away.  (The unconstrained polish diverges
+    on active-set problems, so this gate is what makes constrained
+    reference-scale accuracy possible.)"""
+    from trajectory_optimization_matrix_lie_groups.solvers.df_mixed import (
         MixedDFPipelineSolver,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.df_pipeline import (
+    from trajectory_optimization_matrix_lie_groups.solvers.df_pipeline import (
         join_us,
     )
 
@@ -266,8 +261,7 @@ def test_al_mixed_polish_refines_active_set_to_f64():
 
     # size the box from the unconstrained f64 optimum so it is ACTIVE
     model_u, _ = make_model(dyn, cd, dp64, None)
-    fast_u = FastBatchSolver(model_u, N=H, iterations=ITERS,
-                             use_pallas=False)
+    fast_u = FastBatchSolver(model_u, N=H, iterations=ITERS)
     unc = fast_u.solve({"dyn": dp64, "cost": cp64}, q0s64, xi0s64, us0_64,
                        q_ref64, xi_ref64)
     umax = float(np.abs(np.asarray(unc.us)).max())
@@ -282,7 +276,7 @@ def test_al_mixed_polish_refines_active_set_to_f64():
     constr_p = cs.input_box_params(lb, ub, 6)
     alp64 = costs.al_init_params(cp64, constr_p, H, constr.constr_size,
                                  mu0=1e-2, dtype=jnp.float64)
-    inner = FastBatchSolver(model_c, N=H, iterations=ITERS, use_pallas=False)
+    inner = FastBatchSolver(model_c, N=H, iterations=ITERS)
     # tiny tol + extra outers: the oracle must CONVERGE ITS DUALS (a
     # feasibility-tol break leaves lmbd ascent-inaccurate and the primal
     # ~1e-3 off the true constrained optimum — the very gap the polish
@@ -302,8 +296,7 @@ def test_al_mixed_polish_refines_active_set_to_f64():
     q0s32 = jnp.asarray(q0s64, jnp.float32)
     xi0s32 = jnp.asarray(xi0s64, jnp.float32)
     us0_32 = jnp.zeros((B, H, 6), jnp.float32)
-    pipe = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(prob["dt"]),
-                                interpret=jax.default_backend() != "tpu")
+    pipe = PipelineSolver(N=H, iterations=ITERS, dt=float(prob["dt"]))
     alp_pipe = ALPipelineSolver(pipe, lb=np.full(6, lb), ub=np.full(6, ub),
                                 tol_constr=1e-3)
     res = alp_pipe.solve(dp32, cp32, q0s32, xi0s32, us0_32, n_al_iters=12)
@@ -313,7 +306,7 @@ def test_al_mixed_polish_refines_active_set_to_f64():
     # ascent outers (the f32 loop converges feasibility, not the duals)
     import bench
 
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.al_pipeline import (
+    from trajectory_optimization_matrix_lie_groups.solvers.al_pipeline import (
         al_polish,
     )
 
@@ -324,8 +317,7 @@ def test_al_mixed_polish_refines_active_set_to_f64():
     # reference tail, so its f32 phase must re-close the MS defects on its
     # own — 4 iterations stall at grad 3.7e-3 / err 3.8e-2 (measured)
     mx = MixedDFPipelineSolver(N=H, dt=float(prob["dt"]),
-                               f32_iterations=ITERS, df_iterations=2,
-                               interpret=jax.default_backend() != "tpu")
+                               f32_iterations=ITERS, df_iterations=2)
     us_pol, out, _, _ = al_polish(mx, params64, lb, ub, res, q0s32, xi0s32,
                                   n_outers=2)
     err_pol = float(np.max(np.abs(us_pol - us64)))
@@ -338,7 +330,7 @@ def test_al_mixed_polish_refines_active_set_to_f64():
     # device-dual variant (round 5: dual ascent on device, f32
     # multipliers — no per-outer host readback): same gate, and within
     # dual-rounding distance of the f64-dual host variant
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.al_pipeline import (
+    from trajectory_optimization_matrix_lie_groups.solvers.al_pipeline import (
         al_polish_device,
     )
 

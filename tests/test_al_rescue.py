@@ -13,26 +13,26 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.models import (
+from trajectory_optimization_matrix_lie_groups.models import (
     constraints as cs,
     costs,
     dynamics,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.models.base import make_model
-from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.al_fast import (
+from trajectory_optimization_matrix_lie_groups.models.base import make_model
+from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+from trajectory_optimization_matrix_lie_groups.solvers.al_fast import (
     ALFastSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import (
+from trajectory_optimization_matrix_lie_groups.solvers.batched import (
     FastBatchSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.mpc import (
+from trajectory_optimization_matrix_lie_groups.solvers.mpc import (
     make_closed_loop_batch_constrained,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.pipeline import (
-    PallasPipelineSolver,
+from trajectory_optimization_matrix_lie_groups.solvers.pipeline import (
+    PipelineSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
+from trajectory_optimization_matrix_lie_groups.tasks.parity import (
     build_benchmark,
 )
 
@@ -69,7 +69,7 @@ def test_solve_in_graph_matches_host_loop():
     us0 = jnp.zeros((B, H, 6))
 
     model_c, constr, alp = _al_setup(dp, H, -100.0, 100.0, cp)
-    inner = FastBatchSolver(model_c, N=H, iterations=20, use_pallas=False)
+    inner = FastBatchSolver(model_c, N=H, iterations=20)
     al = ALFastSolver(inner, constr, tol_constr=1e-2)
     p = {"dyn": dp, "cost": alp}
 
@@ -102,10 +102,8 @@ def test_constrained_mpc_masked_rescue():
     q0s = SE3.normalize(cp.q_ref[0][None] @ SE3.exp(dq))
     xi0s = jnp.broadcast_to(cp.xi_ref[0], (B, 6)) + jnp.float32(0.8)
 
-    interp = jax.default_backend() != "tpu"
-    pipe = PallasPipelineSolver(N=H, iterations=ITERS,
-                                dt=float(data["prob"]["dt"]),
-                                interpret=interp)
+    pipe = PipelineSolver(N=H, iterations=ITERS,
+                                dt=float(data["prob"]["dt"]))
     run = make_closed_loop_batch_constrained(pipe, model, T, lb, ub,
                                              n_al_iters=NAL)
     _, maxv = run(dp, cp, q0s, xi0s)
@@ -113,7 +111,7 @@ def test_constrained_mpc_masked_rescue():
         "expected hard lanes (otherwise this test exercises nothing)"
 
     model_c, constr, _ = _al_setup(dp, H, lb, ub, cp)
-    inner = FastBatchSolver(model_c, N=H, iterations=20, use_pallas=False)
+    inner = FastBatchSolver(model_c, N=H, iterations=20)
     alf = ALFastSolver(inner, constr, tol_constr=1e-2)
     run_r = make_closed_loop_batch_constrained(
         pipe, model, T, lb, ub, n_al_iters=NAL, rescue=alf, rescue_outers=8)

@@ -1,19 +1,22 @@
 """Anchored-pose fast solver: algebraic equivalence + f32 accuracy gain."""
 
+import os
+
 import numpy as np
 import pytest
 
 import jax
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.anchored import (
+from trajectory_optimization_matrix_lie_groups.solvers.anchored import (
     AnchoredFastSolver,
     build_anchored,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.utils import load_benchmark_pickle
+from trajectory_optimization_matrix_lie_groups.utils import load_benchmark_pickle
 
 PKL = "/root/reference/visualization/results_benchmark_2nd_draft/results_se3_tracking_benchmark.pkl"
-GOLD = "/root/repo/trajectory_optimization_matrix_lie_groups_tpu/tasks/golden/"
+GOLD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "trajectory_optimization_matrix_lie_groups", "tasks", "golden", "")
 
 
 @pytest.mark.parity
@@ -29,7 +32,7 @@ def test_anchored_f64_matches_golden():
 
     ap = build_anchored(prob["J"], float(prob["dt"]), prob["Q"], prob["R"],
                         prob["P"], q_ref, xi_ref, dtype=jnp.float64)
-    fs = AnchoredFastSolver(ap, N=H, iterations=14, use_pallas=False)
+    fs = AnchoredFastSolver(ap, N=H, iterations=14)
     q0_loc = np.linalg.inv(q_ref[0]) @ q0
     qs, xis, us, J, grad = fs.solve(
         jnp.asarray(q0_loc)[None], jnp.asarray(xi0)[None],
@@ -53,7 +56,7 @@ def test_anchored_f32_gradient_floor_improves():
 
     ap = build_anchored(prob["J"], float(prob["dt"]), prob["Q"], prob["R"],
                         prob["P"], q_ref, xi_ref, dtype=jnp.float32)
-    fs = AnchoredFastSolver(ap, N=H, iterations=14, use_pallas=False)
+    fs = AnchoredFastSolver(ap, N=H, iterations=14)
     q0_loc = np.linalg.inv(q_ref[0]) @ q0
     qs, xis, us, J, grad = fs.solve(
         jnp.asarray(q0_loc, jnp.float32)[None],

@@ -1,4 +1,4 @@
-"""FastBatchSolver (batch-explicit, Pallas-ready) vs the reference engine."""
+"""FastBatchSolver (batch-explicit XLA scan) vs the reference engine."""
 
 import dataclasses
 
@@ -8,13 +8,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import FastBatchSolver
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.lie_ilqr import LieILQR
-from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import build_benchmark
+from trajectory_optimization_matrix_lie_groups.solvers.batched import FastBatchSolver
+from trajectory_optimization_matrix_lie_groups.solvers.lie_ilqr import LieILQR
+from trajectory_optimization_matrix_lie_groups.tasks.parity import build_benchmark
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_fast_batch_matches_engine(use_pallas):
+def test_fast_batch_matches_engine():
     data, solver, params, x0, us0, _ = build_benchmark("se3_tracking", True)
     H, ITERS, B = 40, 5, 3
     cp = solver.model  # LieModel
@@ -31,16 +30,14 @@ def test_fast_batch_matches_engine(use_pallas):
     xi_ref = params["cost"].xi_ref
 
     key = jax.random.PRNGKey(0)
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
+    from trajectory_optimization_matrix_lie_groups.ops.group import SE3
 
     dq = 0.05 * jax.random.normal(key, (B, 6))
     q0s = SE3.normalize(q_ref[0][None] @ SE3.exp(dq))
     xi0s = jnp.broadcast_to(xi_ref[0], (B, 6))
     us0s = jnp.zeros((B, H, 6))
 
-    fast = FastBatchSolver(solver.model, N=H, iterations=ITERS,
-                           use_pallas=use_pallas,
-                           interpret=(jax.default_backend() != "tpu"))
+    fast = FastBatchSolver(solver.model, N=H, iterations=ITERS)
     out = fast.solve(params, q0s, xi0s, us0s, q_ref, xi_ref)
 
     # reference engine, lane by lane
@@ -51,8 +48,7 @@ def test_fast_batch_matches_engine(use_pallas):
                                    atol=1e-8)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_fast_batch_line_search_matches_engine(use_pallas):
+def test_fast_batch_line_search_matches_engine():
     """line_search=True: per-lane batched merit search == LieILQR's merit
     loop (same accept rule, d_weight schedule, alpha ladder), lane by lane."""
     data, solver, params, x0, us0, _ = build_benchmark("se3_tracking", True)
@@ -70,7 +66,7 @@ def test_fast_batch_line_search_matches_engine(use_pallas):
     q_ref = params["cost"].q_ref
     xi_ref = params["cost"].xi_ref
 
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
+    from trajectory_optimization_matrix_lie_groups.ops.group import SE3
 
     # large perturbations so short alphas actually get selected
     dq = 0.4 * jax.random.normal(jax.random.PRNGKey(3), (B, 6))
@@ -79,8 +75,6 @@ def test_fast_batch_line_search_matches_engine(use_pallas):
     us0s = jnp.zeros((B, H, 6))
 
     fast = FastBatchSolver(solver.model, N=H, iterations=ITERS,
-                           use_pallas=use_pallas,
-                           interpret=(jax.default_backend() != "tpu"),
                            line_search=True, n_alphas=NA)
     out = fast.solve(params, q0s, xi0s, us0s, q_ref, xi_ref)
 
@@ -94,8 +88,7 @@ def test_fast_batch_line_search_matches_engine(use_pallas):
                                    atol=1e-8)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_fast_batch_drone_nu4(use_pallas):
+def test_fast_batch_drone_nu4():
     """nu=4 (drone) exercises the nu-parameterized Riccati kernel."""
     data, solver, params, x0, us0, _ = build_benchmark("drone_racing", True)
     H, ITERS, B = 30, 4, 2
@@ -112,16 +105,14 @@ def test_fast_batch_drone_nu4(use_pallas):
     xi_ref = params["cost"].xi_ref
 
     key = jax.random.PRNGKey(1)
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
+    from trajectory_optimization_matrix_lie_groups.ops.group import SE3
 
     dq = 0.03 * jax.random.normal(key, (B, 6))
     q0s = SE3.normalize(q_ref[0][None] @ SE3.exp(dq))
     xi0s = jnp.broadcast_to(xi_ref[0], (B, 6))
     us0s = jnp.zeros((B, H, 4))
 
-    fast = FastBatchSolver(solver.model, N=H, iterations=ITERS,
-                           use_pallas=use_pallas,
-                           interpret=(jax.default_backend() != "tpu"))
+    fast = FastBatchSolver(solver.model, N=H, iterations=ITERS)
     out = fast.solve(params, q0s, xi0s, us0s, q_ref, xi_ref)
 
     for b in range(B):

@@ -10,17 +10,17 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.ops import dfx
-from trajectory_optimization_matrix_lie_groups_tpu.ops import pallas_lie as pll
-from trajectory_optimization_matrix_lie_groups_tpu.ops.pallas_linearize import (
+from trajectory_optimization_matrix_lie_groups.ops import dfx
+from trajectory_optimization_matrix_lie_groups.ops import lie_lane as ll
+from trajectory_optimization_matrix_lie_groups.ops.stage_linearize import (
     stage_cost_quad,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.df_mixed import (
+from trajectory_optimization_matrix_lie_groups.solvers.df_mixed import (
     MixedDFPipelineSolver,
     riccati_stage_mx,
     stage_cost_quad_mx,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.pipeline import (
+from trajectory_optimization_matrix_lie_groups.solvers.pipeline import (
     riccati_stage,
 )
 
@@ -64,7 +64,7 @@ def test_riccati_stage_mx_matches_full_df():
 
     lxx_df, Vxx_df = _df_of(lxx64), _df_of(Vxx64)
     fu2_df = _df_of(fu2_64)
-    fu2T_df = pll.transpose(fu2_df)
+    fu2T_df = ll.transpose(fu2_df)
     Luu_df = _df_of(Luu64)
 
     k_d, K_d, Qu_d, Vx_d, Vxx_d = riccati_stage(
@@ -74,7 +74,7 @@ def test_riccati_stage_mx_matches_full_df():
     fu2_32 = fu2_df.hi
     k_m, K_m, Qu_m, Vx_m, Vxx_m = riccati_stage_mx(
         fx, dd, lx, lu, lxx_df.hi, fu2_df, fu2T_df, fu2_32,
-        pll.transpose(fu2_32), Luu_df.hi, Vx, Vxx_df.hi,
+        ll.transpose(fu2_32), Luu_df.hi, Vx, Vxx_df.hi,
         nu=nu, glow=False)
 
     scale = np.abs(_join(Vx_d)).max()
@@ -97,7 +97,7 @@ def test_stage_cost_quad_mx_matches_full_df():
     B = 16
     lane = lambda a: np.moveaxis(a, 0, -1).copy()
     dq = RNG.normal(size=(B, 6)) * 0.3
-    from trajectory_optimization_matrix_lie_groups_tpu.ops import se3
+    from trajectory_optimization_matrix_lie_groups.ops import se3
 
     q = np.asarray(se3.exp(jnp.asarray(dq, jnp.float64)))
     R = _df_of(lane(q[:, :3, :3]))
@@ -134,7 +134,7 @@ def test_small_angle_log_and_newton_renorm():
     match the f64 closed forms to DF grade inside the documented envelope
     (|theta| <= ~0.35), and one polar-Newton step restores orthogonality
     quadratically for a near-orthogonal DF rotation."""
-    from trajectory_optimization_matrix_lie_groups_tpu.ops import se3
+    from trajectory_optimization_matrix_lie_groups.ops import se3
 
     B = 48
     w = RNG.uniform(-1, 1, (B, 3))
@@ -145,14 +145,14 @@ def test_small_angle_log_and_newton_renorm():
     q64 = np.asarray(se3.exp(jnp.asarray(xi, jnp.float64)))
     R = _df_of(np.moveaxis(q64[:, :3, :3], 0, -1).copy())
     p = _df_of(q64[:, :3, 3].T.copy())
-    back = pll.se3_log_small(R, p)
+    back = ll.se3_log_small(R, p)
     np.testing.assert_allclose(_join(back), xi.T, atol=5e-13)
 
     # Newton renormalization: perturb orthogonality by ~1e-7, expect
     # orthogonality restored to ~1e-14 (error squares)
     Rp = _df_of(np.moveaxis(q64[:, :3, :3]
                             + 1e-7 * RNG.normal(size=(B, 3, 3)), 0, -1))
-    Rn = pll.so3_normalize_newton(Rp)
+    Rn = ll.so3_normalize_newton(Rp)
     Rn64 = np.moveaxis(_join(Rn), -1, 0)
     ortho = np.abs(np.einsum("bij,bkj->bik", Rn64, Rn64)
                    - np.eye(3)[None]).max()
@@ -168,14 +168,14 @@ def test_df_mixed_hits_f64_fixed_point(fx_mode):
     minute XLA:CPU compile of the polish graph).  'hybrid' runs the f32
     Jacobian on all but the last polish iteration — the closing
     DF-Jacobian iteration must erase the f32 bias."""
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import (
+    from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+    from trajectory_optimization_matrix_lie_groups.solvers.batched import (
         FastBatchSolver,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.df_pipeline import (
+    from trajectory_optimization_matrix_lie_groups.solvers.df_pipeline import (
         join_us,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
+    from trajectory_optimization_matrix_lie_groups.tasks.parity import (
         build_benchmark,
     )
 
@@ -194,16 +194,14 @@ def test_df_mixed_hits_f64_fixed_point(fx_mode):
     us0s = jnp.zeros((B, H, 6), jnp.float64)
 
     F32_ITERS, DF_ITERS = 10, 3
-    fast = FastBatchSolver(solver.model, N=H, iterations=F32_ITERS + DF_ITERS,
-                           use_pallas=False)
+    fast = FastBatchSolver(solver.model, N=H, iterations=F32_ITERS + DF_ITERS)
     ref = fast.solve(params, q0s, xi0s, us0s, cp.q_ref, cp.xi_ref)
     us_ref = np.asarray(ref.us, np.float64)
 
     np_params = jax.tree.map(np.asarray, params)
     mx = MixedDFPipelineSolver(N=H, dt=float(params["dyn"].dt),
                                f32_iterations=F32_ITERS,
-                               df_iterations=DF_ITERS, fx_mode=fx_mode,
-                               interpret=jax.default_backend() != "tpu")
+                               df_iterations=DF_ITERS, fx_mode=fx_mode)
     out = mx.solve(np_params, q0s, xi0s, us0s)
     us_mx = join_us(out)
     err = np.max(np.abs(us_mx - us_ref))
@@ -230,9 +228,9 @@ def test_riccati_stage_mx_al_diag_add():
     Vxx32 = _psd(12, B).astype(np.float32)
     Vx = _df_of(lane(RNG.normal(size=(B, 12))))
     fu2_df = _df_of(lane(RNG.normal(size=(B, h, nu)) * 0.05))
-    fu2T_df = pll.transpose(fu2_df)
+    fu2T_df = ll.transpose(fu2_df)
     fu2_32 = fu2_df.hi
-    fu2T_32 = pll.transpose(fu2_32)
+    fu2T_32 = ll.transpose(fu2_32)
     Luu32 = _psd(nu, B, scale=0.1).astype(np.float32)
     # active-set style diag: some rows zero, some large
     luual = np.abs(lane(RNG.normal(size=(B, nu)))).astype(np.float32)
@@ -255,124 +253,3 @@ def test_riccati_stage_mx_al_diag_add():
             a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
         scale = max(1.0, np.abs(b).max())
         np.testing.assert_allclose(a, b, rtol=0, atol=3e-6 * scale)
-
-
-@pytest.mark.slow
-def test_kernel_polish_al_branch_interpret():
-    """The compiled ``kernel_polish`` Riccati path with ``al`` set (the
-    extra luu_al gridded input of `_riccati_kernel_mx`) traced in interpret
-    mode on a tiny problem: its controls must match the plain-XLA polish
-    path (kernel_polish=False) — keeps the al=True kernel arg-unpacking/
-    BlockSpecs covered off-chip (round-4 advisor finding)."""
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.df_pipeline import (
-        join_us,
-    )
-    from trajectory_optimization_matrix_lie_groups_tpu.models import (
-        costs,
-        dynamics,
-    )
-
-    H, B, nu = 4, 2, 6
-    dt = 0.01
-    rng = np.random.default_rng(5)
-    # short synthetic reference: screw-ish motion from x0
-    xi_ref = np.tile(np.array([0.1, -0.05, 0.2, 0.5, 0.0, -0.3]), (H + 1, 1))
-    from trajectory_optimization_matrix_lie_groups_tpu.ops import se3 as se3o
-
-    q = np.eye(4)
-    q_ref = [q]
-    for t in range(H):
-        q = q @ np.asarray(se3o.exp(jnp.asarray(xi_ref[t] * dt,
-                                                jnp.float64)))
-        q_ref.append(q)
-    q_ref = np.stack(q_ref)
-
-    J = np.diag([1.0, 2.0, 3.0, 1.0, 1.0, 1.0])
-    dp = dynamics.se3_params(jnp.asarray(J, jnp.float64),
-                             jnp.asarray(dt, jnp.float64))
-    cp = costs.tracking_cost_params(
-        SE3, jnp.asarray(np.eye(12), jnp.float64),
-        jnp.asarray(1e-2 * np.eye(6), jnp.float64),
-        jnp.asarray(10 * np.eye(12), jnp.float64),
-        jnp.asarray(q_ref, jnp.float64),
-        jnp.asarray(xi_ref, jnp.float64))
-    params = {"dyn": dp, "cost": cp}
-    np_params = jax.tree.map(np.asarray, params)
-
-    dq = 0.05 * rng.normal(size=(B, 6))
-    q0s = SE3.normalize(jnp.asarray(q_ref[0])[None]
-                        @ SE3.exp(jnp.asarray(dq, jnp.float64)))
-    xi0s = jnp.broadcast_to(jnp.asarray(xi_ref[0]), (B, 6))
-    us0 = jnp.zeros((B, H, nu), jnp.float64)
-
-    # fixed-multiplier AL state with a mix of active/inactive rows
-    lb = np.full(nu, -0.5)
-    ub = np.full(nu, 0.5)
-    lmbd = np.abs(rng.normal(size=(B, H + 1, 2 * nu))).astype(np.float32)
-    imu = np.where(rng.random((B, H + 1, 2 * nu)) < 0.5, 0.0, 10.0).astype(
-        np.float32)
-    al = (lb, ub, lmbd, imu)
-
-    mk = lambda kp: MixedDFPipelineSolver(
-        N=H, dt=dt, f32_iterations=2, df_iterations=1, interpret=True,
-        kernel_polish=kp)
-    out_k = mk(True).solve(np_params, q0s, xi0s, us0, al=al)
-    out_x = mk(False).solve(np_params, q0s, xi0s, us0, al=al)
-    us_k, us_x = join_us(out_k), join_us(out_x)
-    assert np.all(np.isfinite(us_k))
-    scale = max(1.0, np.abs(us_x).max())
-    np.testing.assert_allclose(us_k, us_x, rtol=0, atol=1e-5 * scale)
-
-
-@pytest.mark.slow
-def test_mixed_sublane_packed_matches_lane():
-    """sublanes=8 (packed f32 phase + packed polish) reproduces the lane-
-    layout mixed solve on a tiny problem — both the plain-XLA polish path
-    (kernel_polish=False) and the kernelized one in interpret mode."""
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-    from trajectory_optimization_matrix_lie_groups_tpu.ops import se3 as se3o
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.df_pipeline import (
-        join_us,
-    )
-    from trajectory_optimization_matrix_lie_groups_tpu.models import (
-        costs,
-        dynamics,
-    )
-
-    H, B, nu = 3, 16, 6
-    dt = 0.01
-    rng = np.random.default_rng(5)
-    xi_ref = np.tile(np.array([0.1, -0.05, 0.2, 0.5, 0.0, -0.3]),
-                     (H + 1, 1))
-    q = np.eye(4)
-    q_ref = [q]
-    for t in range(H):
-        q = q @ np.asarray(se3o.exp(jnp.asarray(xi_ref[t] * dt,
-                                                jnp.float64)))
-        q_ref.append(q)
-    q_ref = np.stack(q_ref)
-    J = np.diag([1.0, 2.0, 3.0, 1.0, 1.0, 1.0])
-    dp = dynamics.se3_params(jnp.asarray(J, jnp.float64),
-                             jnp.asarray(dt, jnp.float64))
-    cp = costs.tracking_cost_params(
-        SE3, jnp.asarray(np.eye(12), jnp.float64),
-        jnp.asarray(1e-2 * np.eye(6), jnp.float64),
-        jnp.asarray(10 * np.eye(12), jnp.float64),
-        jnp.asarray(q_ref, jnp.float64), jnp.asarray(xi_ref, jnp.float64))
-    params = jax.tree.map(np.asarray, {"dyn": dp, "cost": cp})
-    dq = 0.05 * rng.normal(size=(B, 6))
-    q0s = SE3.normalize(jnp.asarray(q_ref[0])[None]
-                        @ SE3.exp(jnp.asarray(dq, jnp.float64)))
-    xi0s = jnp.broadcast_to(jnp.asarray(xi_ref[0]), (B, 6))
-    us0 = jnp.zeros((B, H, nu), jnp.float64)
-
-    mk = lambda S, kp: MixedDFPipelineSolver(
-        N=H, dt=dt, f32_iterations=2, df_iterations=1, interpret=True,
-        sublanes=S, kernel_polish=kp,
-        df_batch_tile=B if S == 1 else 8)
-    ref = join_us(mk(1, False).solve(params, q0s, xi0s, us0))
-    for kp in (False, True):
-        got = join_us(mk(8, kp).solve(params, q0s, xi0s, us0))
-        err = np.abs(got - ref).max()
-        assert err < 1e-6, (kp, err)

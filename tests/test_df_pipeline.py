@@ -1,4 +1,4 @@
-"""Double-f32 Pallas pipeline (solvers/df_pipeline.py): DF Lie-op accuracy
+"""Double-f32 pipeline (solvers/df_pipeline.py): DF Lie-op accuracy
 and convergence of the DF polish phase to the float64 fixed point.
 
 The headline claim under test: the f32 pipeline alone lands ~1e-3 from the
@@ -13,18 +13,18 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.ops import dfx
-from trajectory_optimization_matrix_lie_groups_tpu.ops import pallas_lie as pll
-from trajectory_optimization_matrix_lie_groups_tpu.ops import se3
-from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import (
+from trajectory_optimization_matrix_lie_groups.ops import dfx
+from trajectory_optimization_matrix_lie_groups.ops import lie_lane as ll
+from trajectory_optimization_matrix_lie_groups.ops import se3
+from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+from trajectory_optimization_matrix_lie_groups.solvers.batched import (
     FastBatchSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.df_pipeline import (
+from trajectory_optimization_matrix_lie_groups.solvers.df_pipeline import (
     DFPipelineSolver,
     join_us,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
+from trajectory_optimization_matrix_lie_groups.tasks.parity import (
     build_benchmark,
 )
 
@@ -55,22 +55,22 @@ def test_df_lie_ops_match_f64():
     xi = np.concatenate([w, v], axis=-1)  # (B, 6) [omega, v]
 
     xi_l = _df_lane(xi.T)                 # (6, B) lanes
-    R_df, p_df = pll.se3_exp(xi_l)
+    R_df, p_df = ll.se3_exp(xi_l)
     q64 = np.asarray(se3.exp(jnp.asarray(xi, jnp.float64)))  # (B, 4, 4)
     np.testing.assert_allclose(_join(R_df), np.moveaxis(q64[:, :3, :3], 0, -1),
                                atol=2e-13)
     np.testing.assert_allclose(_join(p_df), q64[:, :3, 3].T, atol=2e-13)
 
     # log(exp(xi)) == xi through the DF quaternion + Newton-atan path
-    xi_back = pll.se3_log(R_df, p_df)
+    xi_back = ll.se3_log(R_df, p_df)
     np.testing.assert_allclose(_join(xi_back), xi.T, atol=5e-13)
 
     # right Jacobian + inverse against the f64 host closed forms
-    Jr_df = pll.se3_right_jacobian(xi_l)
+    Jr_df = ll.se3_right_jacobian(xi_l)
     Jr64 = np.asarray(se3.right_jacobian(jnp.asarray(xi, jnp.float64)))
     np.testing.assert_allclose(_join(Jr_df), np.moveaxis(Jr64, 0, -1),
                                atol=2e-13)
-    Jri_df = pll.se3_right_jacobian_inv(xi_l)
+    Jri_df = ll.se3_right_jacobian_inv(xi_l)
     Jri64 = np.asarray(se3.right_jacobian_inv(jnp.asarray(xi, jnp.float64)))
     np.testing.assert_allclose(_join(Jri_df), np.moveaxis(Jri64, 0, -1),
                                atol=5e-13)
@@ -83,8 +83,8 @@ def test_f32_path_unchanged():
     B = 32
     xi = RNG.uniform(-1, 1, (B, 6)).astype(np.float32)
     xi_l = jnp.asarray(xi.T)
-    R, p = pll.se3_exp(xi_l)
-    back = pll.se3_log(R, p)
+    R, p = ll.se3_exp(xi_l)
+    back = ll.se3_log(R, p)
     np.testing.assert_allclose(np.asarray(back), xi.T, atol=5e-6)
     assert back.dtype == jnp.float32
 
@@ -113,16 +113,13 @@ def test_df_pipeline_hits_f64_fixed_point(df_iters):
     F32_ITERS, TOTAL = 10, 10 + df_iters
     # f64 oracle at the same total iteration budget (same algorithm: fixed
     # budget, mu=0, no line search)
-    fast = FastBatchSolver(solver.model, N=H, iterations=TOTAL,
-                           use_pallas=False)
+    fast = FastBatchSolver(solver.model, N=H, iterations=TOTAL)
     ref = fast.solve(params, q0s, xi0s, us0s, cp.q_ref, cp.xi_ref)
     us_ref = np.asarray(ref.us, np.float64)
 
-    interp = jax.default_backend() != "tpu"
     np_params = jax.tree.map(np.asarray, params)
     dfp = DFPipelineSolver(N=H, dt=float(params["dyn"].dt),
-                           f32_iterations=F32_ITERS, df_iterations=df_iters,
-                           interpret=interp)
+                           f32_iterations=F32_ITERS, df_iterations=df_iters)
     out = dfp.solve(np_params, q0s, xi0s, us0s)
     us_df = join_us(out)
 
@@ -140,8 +137,8 @@ def test_df_pipeline_hits_f64_fixed_point(df_iters):
 
     # and the DF polish genuinely improves on the pure-f32 pipeline at the
     # same total iteration budget
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.pipeline import (
-        PallasPipelineSolver,
+    from trajectory_optimization_matrix_lie_groups.solvers.pipeline import (
+        PipelineSolver,
     )
 
     to32 = lambda t: jax.tree.map(
@@ -149,9 +146,8 @@ def test_df_pipeline_hits_f64_fixed_point(df_iters):
         if hasattr(x, "dtype") and jnp.issubdtype(x.dtype, jnp.floating)
         else x, t)
     p32 = to32(params)
-    pipe32 = PallasPipelineSolver(N=H, iterations=F32_ITERS + df_iters,
-                                  dt=float(params["dyn"].dt),
-                                  interpret=interp)
+    pipe32 = PipelineSolver(N=H, iterations=F32_ITERS + df_iters,
+                                  dt=float(params["dyn"].dt))
     out_f = pipe32.solve(p32["dyn"], p32["cost"],
                          jnp.asarray(q0s, jnp.float32),
                          jnp.asarray(xi0s, jnp.float32),

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from trajectory_optimization_matrix_lie_groups_tpu.ops import dfx
+from trajectory_optimization_matrix_lie_groups.ops import dfx
 
 RNG = np.random.default_rng(7)
 

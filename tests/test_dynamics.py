@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from trajectory_optimization_matrix_lie_groups_tpu.models import dynamics as dyn
-from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3, SO3
+from trajectory_optimization_matrix_lie_groups.models import dynamics as dyn
+from trajectory_optimization_matrix_lie_groups.ops.group import SE3, SO3
 
 KEY = jax.random.PRNGKey(42)
 

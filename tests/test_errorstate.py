@@ -11,10 +11,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.models import errorstate as es
-from trajectory_optimization_matrix_lie_groups_tpu.ops import se3
-from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.errorstate_ilqr import (
+from trajectory_optimization_matrix_lie_groups.models import errorstate as es
+from trajectory_optimization_matrix_lie_groups.ops import se3
+from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+from trajectory_optimization_matrix_lie_groups.solvers.errorstate_ilqr import (
     ErrorStateILQR,
     ESConfig,
 )

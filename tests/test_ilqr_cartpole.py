@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from trajectory_optimization_matrix_lie_groups_tpu.models.autodiff import autodiff_model
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.ilqr import ILQR, ILQRConfig
-from trajectory_optimization_matrix_lie_groups_tpu.tasks import cartpole
+from trajectory_optimization_matrix_lie_groups.models.autodiff import autodiff_model
+from trajectory_optimization_matrix_lie_groups.solvers.ilqr import ILQR, ILQRConfig
+from trajectory_optimization_matrix_lie_groups.tasks import cartpole
 
 
 def test_lqr_matches_riccati():

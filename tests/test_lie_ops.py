@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from trajectory_optimization_matrix_lie_groups_tpu.ops import se3, so3
+from trajectory_optimization_matrix_lie_groups.ops import se3, so3
 
 KEY = jax.random.PRNGKey(0)
 

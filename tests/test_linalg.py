@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.utils.linalg import (
+from trajectory_optimization_matrix_lie_groups.utils.linalg import (
     chol_solve_psd,
     setup_inv,
 )

@@ -7,11 +7,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.models import costs as costs_m
-from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.lie_ilqr import LieILQR
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.mpc import make_closed_loop
-from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import build_benchmark
+from trajectory_optimization_matrix_lie_groups.models import costs as costs_m
+from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+from trajectory_optimization_matrix_lie_groups.solvers.lie_ilqr import LieILQR
+from trajectory_optimization_matrix_lie_groups.solvers.mpc import make_closed_loop
+from trajectory_optimization_matrix_lie_groups.tasks.parity import build_benchmark
 
 
 @pytest.mark.parity
@@ -43,19 +43,19 @@ def test_closed_loop_mpc_tracks_path():
 
 def test_mpc_f32_closed_loop_fidelity():
     """Open-loop f32 controls carry ~1e-3 noise in flat-in-u directions
-    (sigma_min(Quu) ~ 2R = 2e-5, see STATUS.md), but the closed loop is
+    (sigma_min(Quu) ~ 2R = 2e-5), but the closed loop is
     insensitive: the f32 plant trajectory matches f64 to ~1e-5."""
     import dataclasses
     import os
 
     import numpy as np
 
-    from trajectory_optimization_matrix_lie_groups_tpu.ops import se3
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.lie_ilqr import LieILQR
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.mpc import (
+    from trajectory_optimization_matrix_lie_groups.ops import se3
+    from trajectory_optimization_matrix_lie_groups.solvers.lie_ilqr import LieILQR
+    from trajectory_optimization_matrix_lie_groups.solvers.mpc import (
         make_closed_loop,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
+    from trajectory_optimization_matrix_lie_groups.tasks.parity import (
         build_benchmark,
     )
 
@@ -92,11 +92,11 @@ def test_batched_closed_loop_matches_host_loop():
     """Pipeline-backed batched MPC scan == a host loop of pipe.solve calls."""
     import jax
 
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.mpc import (
+    from trajectory_optimization_matrix_lie_groups.solvers.mpc import (
         make_closed_loop_batch,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.pipeline import (
-        PallasPipelineSolver,
+    from trajectory_optimization_matrix_lie_groups.solvers.pipeline import (
+        PipelineSolver,
     )
 
     data, solver_full, params, x0, us0, _ = build_benchmark("se3_tracking", True)
@@ -104,9 +104,7 @@ def test_batched_closed_loop_matches_host_loop():
     dp = params["dyn"]
     model = solver_full.model
     H, T, B = 10, 5, 3
-    interp = jax.default_backend() != "tpu"
-    pipe = PallasPipelineSolver(N=H, iterations=3, dt=float(dp.dt),
-                                interpret=interp)
+    pipe = PipelineSolver(N=H, iterations=3, dt=float(dp.dt))
     run = make_closed_loop_batch(pipe, model, T)
 
     dq = 0.05 * jax.random.normal(jax.random.PRNGKey(4), (B, 6))
@@ -140,20 +138,18 @@ def test_batched_closed_loop_with_disturbance():
     from the noiseless run; sigma=0 with a key reproduces noiseless."""
     import jax
 
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.mpc import (
+    from trajectory_optimization_matrix_lie_groups.solvers.mpc import (
         make_closed_loop_batch,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.pipeline import (
-        PallasPipelineSolver,
+    from trajectory_optimization_matrix_lie_groups.solvers.pipeline import (
+        PipelineSolver,
     )
 
     data, solver_full, params, x0, us0, _ = build_benchmark("se3_tracking", True)
     cp_full = params["cost"]
     dp = params["dyn"]
     H, T, B = 10, 5, 2
-    interp = jax.default_backend() != "tpu"
-    pipe = PallasPipelineSolver(N=H, iterations=3, dt=float(dp.dt),
-                                interpret=interp)
+    pipe = PipelineSolver(N=H, iterations=3, dt=float(dp.dt))
     run = make_closed_loop_batch(pipe, solver_full.model, T)
     q0s = jnp.broadcast_to(cp_full.q_ref[0], (B, 4, 4))
     xi0s = jnp.broadcast_to(cp_full.xi_ref[0], (B, 6))

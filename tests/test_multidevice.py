@@ -6,12 +6,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-from trajectory_optimization_matrix_lie_groups_tpu.parallel import (
+from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+from trajectory_optimization_matrix_lie_groups.parallel import (
     BatchSolver,
     make_batch_mesh,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import build_benchmark
+from trajectory_optimization_matrix_lie_groups.tasks.parity import build_benchmark
 
 pytestmark = pytest.mark.multidevice
 
@@ -24,7 +24,7 @@ def test_sharded_batch_solve_matches_single():
     data, solver, params, x0, us0, _ = build_benchmark("so3_tracking", True)
     import dataclasses
 
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.lie_ilqr import LieILQR
+    from trajectory_optimization_matrix_lie_groups.solvers.lie_ilqr import LieILQR
 
     cfg = dataclasses.replace(solver.cfg, max_iterations=5, tol_grad_norm=0.0,
                               tol_d_norm=0.0)
@@ -35,7 +35,7 @@ def test_sharded_batch_solve_matches_single():
 
     B = 16
     key = jax.random.PRNGKey(0)
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SO3
+    from trajectory_optimization_matrix_lie_groups.ops.group import SO3
 
     dq = 0.05 * jax.random.normal(key, (B, 3))
     q0s = SO3.normalize(x0[0][None] @ SO3.exp(dq))
@@ -54,14 +54,14 @@ def test_sharded_batch_solve_matches_single():
 
 
 def test_sharded_pipeline_matches_single():
-    """shard_map'd Pallas pipeline over the 8-device mesh == single-device."""
+    """shard_map'd pipeline over the 8-device mesh == single-device."""
     import dataclasses  # noqa: F401
 
-    from trajectory_optimization_matrix_lie_groups_tpu.parallel import (
+    from trajectory_optimization_matrix_lie_groups.parallel import (
         make_sharded_pipeline,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.pipeline import (
-        PallasPipelineSolver,
+    from trajectory_optimization_matrix_lie_groups.solvers.pipeline import (
+        PipelineSolver,
     )
 
     data, solver, params, x0, us0, _ = build_benchmark("se3_tracking", True)
@@ -77,16 +77,14 @@ def test_sharded_pipeline_matches_single():
     xi0s = jnp.broadcast_to(cp.xi_ref[0], (B, 6))
     us0s = jnp.zeros((B, H, 6))
 
-    interp = jax.default_backend() != "tpu"
     mesh = make_batch_mesh(8)
     sharded = make_sharded_pipeline(N=H, iterations=ITERS, dt=float(dp.dt),
-                                    mesh=mesh, interpret=interp)
+                                    mesh=mesh)
     out = sharded.solve(dp, cp, q0s, xi0s, us0s)
     assert out.us.shape == (B, H, 6)
     assert out.us.sharding.is_equivalent_to(sharded._shard, ndim=3)
 
-    single = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                                  interpret=interp)
+    single = PipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt))
     ref = single.solve(dp, cp, q0s, xi0s, us0s)
     np.testing.assert_allclose(np.asarray(out.us), np.asarray(ref.us),
                                atol=1e-10)
@@ -99,7 +97,7 @@ def test_horizon_sharded_parallel_riccati():
     TIME axis of the mesh (long-horizon mode) matches the unsharded sweep."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers import riccati
+    from trajectory_optimization_matrix_lie_groups.solvers import riccati
 
     N, n, m = 64, 12, 6
     rng = np.random.default_rng(0)
@@ -137,9 +135,8 @@ def test_horizon_sharded_parallel_riccati():
 
 @pytest.mark.slow
 def test_graft_entry_dryrun():
-    """The driver's own MULTICHIP artifact runs this same program every
-    round; slow-tier (60 s of XLA:CPU compile) per the <=4.5 min default-
-    suite budget."""
+    """The multi-device dry run of `__graft_entry__`; slow-tier (60 s of
+    XLA:CPU compile)."""
     import __graft_entry__ as ge
 
     ge.dryrun_multichip(8)

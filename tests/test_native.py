@@ -1,54 +1,45 @@
 """Native (C++) serial MS-iLQR runtime vs golden and the JAX engine."""
 
-import os
-
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu import native
-import bench
+from trajectory_optimization_matrix_lie_groups import native
+from trajectory_optimization_matrix_lie_groups.tasks import se3_bench
 
-# every test solves problems rebuilt from the reference benchmark pickles
-pytestmark = [pytest.mark.skipif(native.LIB is None,
-                                 reason="no native toolchain"),
-              pytest.mark.parity]
-
-
-def _problem(horizon):
-    data = bench.load_benchmark_pickle(bench.PKL)
-    prob = data["prob"]
-    q_ref = np.asarray(prob["q_ref"])[: horizon + 1]
-    xi_ref = np.asarray(prob["xi_ref"]).reshape(-1, 6)[: horizon + 1]
-    return prob, q_ref, xi_ref
+pytestmark = pytest.mark.skipif(native.LIB is None,
+                                reason="no native toolchain")
+# tests marked `parity` solve problems rebuilt from the reference's
+# benchmark pickles
+parity = pytest.mark.parity
 
 
 def test_native_matches_golden():
-    prob, q_ref, xi_ref = _problem(200)
-    q0 = np.load(os.path.join(bench.GOLDEN_DIR, "bench_se3_n200_q0.npy"))
-    xi0 = np.load(os.path.join(bench.GOLDEN_DIR, "bench_se3_n200_xi0.npy"))
-    us_golden = np.load(os.path.join(bench.GOLDEN_DIR, "bench_se3_n200_us.npy"))
+    prob = se3_bench.problem_np64()
+    q0, xi0, us_golden = se3_bench.load_golden()
     s = native.NativeSE3Solver(prob["J"], prob["dt"], prob["Q"], prob["R"],
-                               prob["P"], q_ref, xi_ref, iterations=12)
+                               prob["P"], prob["q_ref"], prob["xi_ref"],
+                               iterations=12)
     us, J, g = s.solve(q0, xi0)
-    # same iterate sequence as FastBatchSolver f64 at 12 iterations (1.1e-6
+    # same iterate sequence as FastBatchSolver f64 at 12 iterations (5.1e-7
     # from the fully-converged golden)
     assert np.max(np.abs(us - us_golden)) < 3e-6
-    assert abs(J - 1027.66452) < 1e-3
+    assert abs(J - 36.6183163) < 1e-3
     assert g < 1e-8
 
 
+@parity
 def test_native_matches_jax_engine():
     """Per-iterate agreement with FastBatchSolver (f64) on a short horizon."""
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import (
+    from trajectory_optimization_matrix_lie_groups.solvers.batched import (
         FastBatchSolver,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
+    from trajectory_optimization_matrix_lie_groups.tasks.parity import (
         build_benchmark,
         cut_reference,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
+    from trajectory_optimization_matrix_lie_groups.ops.group import SE3
     import jax
 
     H, ITERS, B = 40, 6, 2
@@ -58,8 +49,7 @@ def test_native_matches_jax_engine():
     dq = 0.05 * jax.random.normal(jax.random.PRNGKey(2), (B, 6))
     q0s = SE3.normalize(cp.q_ref[0][None] @ SE3.exp(dq))
     xi0s = jnp.broadcast_to(cp.xi_ref[0], (B, 6))
-    fast = FastBatchSolver(solver.model, N=H, iterations=ITERS,
-                           use_pallas=False)
+    fast = FastBatchSolver(solver.model, N=H, iterations=ITERS)
     ref = fast.solve(params, q0s, xi0s, jnp.zeros((B, H, 6)),
                      cp.q_ref, cp.xi_ref)
 
@@ -72,16 +62,17 @@ def test_native_matches_jax_engine():
     np.testing.assert_allclose(J, np.asarray(ref.J_opt), rtol=1e-10)
 
 
+@parity
 def test_native_drone_gravity_matches_jax_engine():
     """Drone family (gravity wrench + 6x4 Pu, nu=4) vs FastBatchSolver."""
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import (
+    from trajectory_optimization_matrix_lie_groups.solvers.batched import (
         FastBatchSolver,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
+    from trajectory_optimization_matrix_lie_groups.tasks.parity import (
         build_benchmark,
         cut_reference,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
+    from trajectory_optimization_matrix_lie_groups.ops.group import SE3
     import jax
 
     H, ITERS, B = 30, 5, 2
@@ -92,8 +83,7 @@ def test_native_drone_gravity_matches_jax_engine():
     dq = 0.03 * jax.random.normal(jax.random.PRNGKey(3), (B, 6))
     q0s = SE3.normalize(cp.q_ref[0][None] @ SE3.exp(dq))
     xi0s = jnp.broadcast_to(cp.xi_ref[0], (B, 6))
-    fast = FastBatchSolver(solver.model, N=H, iterations=ITERS,
-                           use_pallas=False)
+    fast = FastBatchSolver(solver.model, N=H, iterations=ITERS)
     ref = fast.solve(params, q0s, xi0s, jnp.zeros((B, H, 4)),
                      cp.q_ref, cp.xi_ref)
 
@@ -109,18 +99,19 @@ def test_native_drone_gravity_matches_jax_engine():
     np.testing.assert_allclose(J, np.asarray(ref.J_opt), rtol=1e-10)
 
 
+@parity
 @pytest.mark.parametrize("name,pendulum", [("so3_tracking", False),
                                            ("pendulum_swingup", True)])
 def test_native_so3_matches_jax_engine(name, pendulum):
     """SO(3) families (free attitude, 3-D pendulum) vs FastBatchSolver."""
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import (
+    from trajectory_optimization_matrix_lie_groups.solvers.batched import (
         FastBatchSolver,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
+    from trajectory_optimization_matrix_lie_groups.tasks.parity import (
         build_benchmark,
         cut_reference,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SO3
+    from trajectory_optimization_matrix_lie_groups.ops.group import SO3
     import jax
 
     H, ITERS, B = 30, 6, 2
@@ -131,8 +122,7 @@ def test_native_so3_matches_jax_engine(name, pendulum):
     dq = 0.05 * jax.random.normal(jax.random.PRNGKey(3), (B, 3))
     q0s = SO3.normalize(cp.q_ref[0][None] @ SO3.exp(dq))
     xi0s = jnp.broadcast_to(cp.xi_ref[0], (B, 3))
-    fast = FastBatchSolver(solver.model, N=H, iterations=ITERS,
-                           use_pallas=False)
+    fast = FastBatchSolver(solver.model, N=H, iterations=ITERS)
     ref = fast.solve(params, q0s, xi0s, jnp.zeros((B, H, 3)),
                      cp.q_ref, cp.xi_ref)
 
@@ -152,17 +142,18 @@ def test_native_so3_matches_jax_engine(name, pendulum):
     np.testing.assert_allclose(us1, us[0], atol=1e-12)
 
 
+@parity
 def test_native_mpc_matches_jax_closed_loop():
     """NativeMPC == make_closed_loop (backward='sequential_fixed') at f64."""
     import dataclasses
 
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.lie_ilqr import (
+    from trajectory_optimization_matrix_lie_groups.solvers.lie_ilqr import (
         LieILQR,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.mpc import (
+    from trajectory_optimization_matrix_lie_groups.solvers.mpc import (
         make_closed_loop,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
+    from trajectory_optimization_matrix_lie_groups.tasks.parity import (
         build_benchmark,
     )
 
@@ -188,31 +179,30 @@ def test_native_mpc_matches_jax_closed_loop():
     np.testing.assert_allclose(qs, np.asarray(ref.qs), atol=1e-9)
     np.testing.assert_allclose(xis, np.asarray(ref.xis), atol=1e-9)
     # J conventions differ by one rollout (post-rollout vs linearization
-    # point); see scripts/probe_native_mpc.py
+    # point)
     np.testing.assert_allclose(J_pred, np.asarray(ref.J_pred), rtol=1e-4)
 
 
 def test_native_al_matches_al_fast():
     """Native AL outer loop (input box) == ALFastSolver at f64."""
-    from trajectory_optimization_matrix_lie_groups_tpu.models import (
+    from trajectory_optimization_matrix_lie_groups.models import (
         constraints as cs,
         costs,
         dynamics,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.models.base import (
+    from trajectory_optimization_matrix_lie_groups.models.base import (
         make_model,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.al_fast import (
+    from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+    from trajectory_optimization_matrix_lie_groups.solvers.al_fast import (
         ALFastSolver,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import (
+    from trajectory_optimization_matrix_lie_groups.solvers.batched import (
         FastBatchSolver,
     )
     import jax
 
-    data = bench.load_benchmark_pickle(bench.PKL)
-    prob = data["prob"]
+    prob = se3_bench.problem_np64()
     H, B, ITERS = 40, 2, 20
     q_ref = jnp.asarray(np.asarray(prob["q_ref"])[: H + 1])
     xi_ref = jnp.asarray(np.asarray(prob["xi_ref"])[: H + 1].reshape(H + 1, 6))
@@ -232,7 +222,7 @@ def test_native_al_matches_al_fast():
     model_c, _ = make_model(dyn, al_cd, dp, None)
     alp = costs.al_init_params(cp, cs.input_box_params(lb, ub, 6), H,
                                constr.constr_size, mu0=1e-2)
-    inner = FastBatchSolver(model_c, N=H, iterations=ITERS, use_pallas=False)
+    inner = FastBatchSolver(model_c, N=H, iterations=ITERS)
     ref = ALFastSolver(inner, constr, tol_constr=1e-2).solve(
         {"dyn": dp, "cost": alp}, q0s, xi0s, us0,
         q_ref=q_ref, xi_ref=xi_ref, n_al_iters=15)
@@ -249,11 +239,12 @@ def test_native_al_matches_al_fast():
     assert us.max() <= ub + 1e-2 and us.min() >= lb - 1e-2
 
 
+@parity
 def test_native_mpc_constrained():
     """NativeMPC with input bounds: box respected, tracking preserved."""
-    from trajectory_optimization_matrix_lie_groups_tpu.ops import se3
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-    from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
+    from trajectory_optimization_matrix_lie_groups.ops import se3
+    from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+    from trajectory_optimization_matrix_lie_groups.tasks.parity import (
         build_benchmark,
     )
 

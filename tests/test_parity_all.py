@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
+from trajectory_optimization_matrix_lie_groups.tasks.parity import (
     BENCHMARKS,
     RESULTS_DIR,
     build_benchmark,

@@ -1,4 +1,9 @@
-"""Lane-layout pipeline solver vs FastBatchSolver (same iterates)."""
+"""Lane-layout pipeline: same iterates as FastBatchSolver; the generated
+stage-recursion kernels (`ops/lanewise.py`, host build on the CPU) against
+the `lax.scan` over the same stage functions; the kernel-target choice."""
+
+import functools
+import re
 
 import numpy as np
 import pytest
@@ -6,292 +11,266 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import FastBatchSolver
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.pipeline import (
-    PallasPipelineSolver,
+from trajectory_optimization_matrix_lie_groups.models import costs, dynamics
+from trajectory_optimization_matrix_lie_groups.models.base import make_model
+from trajectory_optimization_matrix_lie_groups.ops import lanewise
+from trajectory_optimization_matrix_lie_groups.ops import lie_lane as ll
+from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+from trajectory_optimization_matrix_lie_groups.solvers import pipeline
+from trajectory_optimization_matrix_lie_groups.solvers.batched import FastBatchSolver
+from trajectory_optimization_matrix_lie_groups.solvers.pipeline import (
+    PipelineSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import build_benchmark
+from trajectory_optimization_matrix_lie_groups.tasks import se3_bench
+from trajectory_optimization_matrix_lie_groups.utils import platform
+
+def _problem(H, gravity=False, dtype=jnp.float32):
+    """The bench problem cut to H stages; ``gravity``: the same path
+    tracked by the gravity/drone family (rigid body + 6x4 projection)."""
+    prob = se3_bench.problem_np64(H)
+    if gravity:
+        dyn = dynamics.drone_dynamics()
+        dp = dynamics.drone_params(jnp.asarray(prob["J"], dtype),
+                                   jnp.asarray(prob["dt"], dtype))
+        nu, R = 4, 1e-2 * np.eye(4)
+    else:
+        dyn = dynamics.se3_dynamics()
+        dp = dynamics.se3_params(jnp.asarray(prob["J"], dtype),
+                                 jnp.asarray(prob["dt"], dtype))
+        nu, R = 6, prob["R"]
+    cp = costs.tracking_cost_params(
+        SE3, jnp.asarray(prob["Q"], dtype), jnp.asarray(R, dtype),
+        jnp.asarray(prob["P"], dtype), jnp.asarray(prob["q_ref"], dtype),
+        jnp.asarray(prob["xi_ref"], dtype))
+    model, params = make_model(dyn, costs.tracking_cost(SE3, nu), dp, cp)
+    return model, params, jnp.asarray(prob["q0"], dtype), \
+        jnp.asarray(prob["xi0"], dtype), nu
+
+
+def _batch(q0, xi0, B, H, nu, seed=0):
+    dq = 0.05 * jax.random.normal(jax.random.PRNGKey(seed), (B, 6),
+                                  dtype=q0.dtype)
+    return (SE3.normalize(q0[None] @ SE3.exp(dq)),
+            jnp.broadcast_to(xi0, (B, 6)), jnp.zeros((B, H, nu), q0.dtype))
 
 
 def test_pipeline_matches_fast_batch():
-    data, solver, params, x0, us0, _ = build_benchmark("se3_tracking", True)
     H, B, ITERS = 30, 3, 4
-    cp = params["cost"]
-    cut = lambda a: a[: H + 1]
-    cp = cp._replace(q_ref=cut(cp.q_ref), q_ref_inv=cut(cp.q_ref_inv),
-                     Ad_ref=cut(cp.Ad_ref), xi_ref=cut(cp.xi_ref))
-    params = {**params, "cost": cp}
-    to32 = lambda t: jax.tree.map(
-        lambda x: jnp.asarray(x, jnp.float32)
-        if hasattr(x, "dtype") and x.dtype == jnp.float64 else x, t)
-    params = to32(params)
-    cp = params["cost"]
-    dp = params["dyn"]
-
-    key = jax.random.PRNGKey(0)
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-
-    dq = 0.05 * jax.random.normal(key, (B, 6), dtype=jnp.float32)
-    q0s = SE3.normalize(cp.q_ref[0][None] @ SE3.exp(dq))
-    xi0s = jnp.broadcast_to(cp.xi_ref[0], (B, 6))
-    us0s = jnp.zeros((B, H, 6), jnp.float32)
-
-    interp = jax.default_backend() != "tpu"
-    fast = FastBatchSolver(solver.model, N=H, iterations=ITERS,
-                           use_pallas=False, interpret=interp)
-    ref = fast.solve(params, q0s, xi0s, us0s, cp.q_ref, cp.xi_ref)
-
-    pipe = PallasPipelineSolver(N=H, iterations=ITERS,
-                                dt=float(dp.dt), interpret=interp)
-    out = pipe.solve(dp, cp, q0s, xi0s, us0s)
-
-    np.testing.assert_allclose(np.asarray(out.us), np.asarray(ref.us),
-                               atol=5e-4, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(out.J_opt), np.asarray(ref.J_opt),
-                               rtol=1e-4)
-
-
-@pytest.mark.slow
-def test_pipeline_batch_tile():
-    """(batch_tile, stage) grid reproduces the full-batch pipeline exactly."""
-    data, solver, params, x0, us0, _ = build_benchmark("se3_tracking", True)
-    H, B, ITERS = 20, 4, 3
-    cp = params["cost"]
-    cut = lambda a: a[: H + 1]
-    cp = cp._replace(q_ref=cut(cp.q_ref), q_ref_inv=cut(cp.q_ref_inv),
-                     Ad_ref=cut(cp.Ad_ref), xi_ref=cut(cp.xi_ref))
-    params = {**params, "cost": cp}
-    to32 = lambda t: jax.tree.map(
-        lambda x: jnp.asarray(x, jnp.float32)
-        if hasattr(x, "dtype") and x.dtype == jnp.float64 else x, t)
-    params = to32(params)
-    cp = params["cost"]
-    dp = params["dyn"]
-
-    key = jax.random.PRNGKey(7)
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-
-    dq = 0.05 * jax.random.normal(key, (B, 6), dtype=jnp.float32)
-    q0s = SE3.normalize(cp.q_ref[0][None] @ SE3.exp(dq))
-    xi0s = jnp.broadcast_to(cp.xi_ref[0], (B, 6))
-    us0s = jnp.zeros((B, H, 6), jnp.float32)
-
-    interp = jax.default_backend() != "tpu"
-    full = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                                interpret=interp)
-    tiled = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                                 interpret=interp, batch_tile=2)
-    a = full.solve(dp, cp, q0s, xi0s, us0s)
-    b = tiled.solve(dp, cp, q0s, xi0s, us0s)
-    np.testing.assert_allclose(np.asarray(a.us), np.asarray(b.us), atol=1e-12)
-    np.testing.assert_allclose(np.asarray(a.J_opt), np.asarray(b.J_opt),
-                               atol=1e-12)
-
-
-@pytest.mark.slow
-def test_pipeline_drone_gravity():
-    """Drone family (nu=4, gravity, Pu projection) through all 3 kernels."""
-    data, solver, params, x0, us0, _ = build_benchmark("drone_racing", True)
-    H, B, ITERS = 25, 3, 4
-    cp = params["cost"]
-    cut = lambda a: a[: H + 1]
-    cp = cp._replace(q_ref=cut(cp.q_ref), q_ref_inv=cut(cp.q_ref_inv),
-                     Ad_ref=cut(cp.Ad_ref), xi_ref=cut(cp.xi_ref))
-    params = {**params, "cost": cp}
-    to32 = lambda t: jax.tree.map(
-        lambda x: jnp.asarray(x, jnp.float32)
-        if hasattr(x, "dtype") and x.dtype == jnp.float64 else x, t)
-    params = to32(params)
-    cp = params["cost"]
-    dp = params["dyn"]
-
-    key = jax.random.PRNGKey(3)
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-
-    dq = 0.03 * jax.random.normal(key, (B, 6), dtype=jnp.float32)
-    q0s = SE3.normalize(cp.q_ref[0][None] @ SE3.exp(dq))
-    xi0s = jnp.broadcast_to(cp.xi_ref[0], (B, 6))
-    us0s = jnp.zeros((B, H, 4), jnp.float32)
-
-    interp = jax.default_backend() != "tpu"
-    fast = FastBatchSolver(solver.model, N=H, iterations=ITERS,
-                           use_pallas=False)
-    ref = fast.solve(params, q0s, xi0s, us0s, cp.q_ref, cp.xi_ref)
-
-    pipe = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                                interpret=interp, gravity=True)
-    out = pipe.solve(dp, cp, q0s, xi0s, us0s)
-
-    np.testing.assert_allclose(np.asarray(out.us), np.asarray(ref.us),
-                               atol=5e-4, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(out.J_opt), np.asarray(ref.J_opt),
-                               rtol=1e-4)
-
-
-@pytest.mark.slow
-def test_pipeline_stage_chunk():
-    """chunk>1 grid (multi-stage blocks) reproduces chunk=1 exactly."""
-    data, solver, params, x0, us0, _ = build_benchmark("se3_tracking", True)
-    H, B, ITERS = 20, 2, 3
-    cp = params["cost"]
-    cut = lambda a: a[: H + 1]
-    cp = cp._replace(q_ref=cut(cp.q_ref), q_ref_inv=cut(cp.q_ref_inv),
-                     Ad_ref=cut(cp.Ad_ref), xi_ref=cut(cp.xi_ref))
-    params = {**params, "cost": cp}
+    model, params, q0, xi0, nu = _problem(H)
     cp, dp = params["cost"], params["dyn"]
+    q0s, xi0s, us0s = _batch(q0, xi0, B, H, nu)
 
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
+    fast = FastBatchSolver(model, N=H, iterations=ITERS)
+    ref = fast.solve(params, q0s, xi0s, us0s, cp.q_ref, cp.xi_ref)
+    pipe = PipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt))
+    out = pipe.solve(dp, cp, q0s, xi0s, us0s)
 
-    # f64 so op-fusion rounding differences between the two unrollings do
-    # not mask exact algorithmic equivalence
-    dq = 0.05 * jax.random.normal(jax.random.PRNGKey(11), (B, 6))
-    q0s = SE3.normalize(cp.q_ref[0][None] @ SE3.exp(dq))
-    xi0s = jnp.broadcast_to(cp.xi_ref[0], (B, 6))
-    us0s = jnp.zeros((B, H, 6))
-
-    interp = jax.default_backend() != "tpu"
-    base = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                                interpret=interp)
-    chunked = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                                   interpret=interp, stage_chunk=4)
-    a = base.solve(dp, cp, q0s, xi0s, us0s)
-    b = chunked.solve(dp, cp, q0s, xi0s, us0s)
-    np.testing.assert_allclose(np.asarray(a.us), np.asarray(b.us), atol=1e-8)
-    np.testing.assert_allclose(np.asarray(a.J_opt), np.asarray(b.J_opt),
-                               rtol=1e-10)
+    np.testing.assert_allclose(np.asarray(out.us), np.asarray(ref.us),
+                               atol=5e-4, rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(out.J_opt), np.asarray(ref.J_opt),
+                               rtol=1e-4)
 
 
-@pytest.mark.slow
-def test_pipeline_fused_matches_unfused():
-    """2-kernel fused (rollout+linearize) layout == 3-kernel layout exactly."""
-    data, solver, params, x0, us0, _ = build_benchmark("se3_tracking", True)
-    H, B, ITERS = 20, 2, 4
-    cp = params["cost"]
-    cut = lambda a: a[: H + 1]
-    cp = cp._replace(q_ref=cut(cp.q_ref), q_ref_inv=cut(cp.q_ref_inv),
-                     Ad_ref=cut(cp.Ad_ref), xi_ref=cut(cp.xi_ref))
-    dp = params["dyn"]
-
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-
-    # f64: the two layouts must be algorithmically identical
-    dq = 0.05 * jax.random.normal(jax.random.PRNGKey(13), (B, 6))
-    q0s = SE3.normalize(cp.q_ref[0][None] @ SE3.exp(dq))
-    xi0s = jnp.broadcast_to(cp.xi_ref[0], (B, 6))
-    us0s = jnp.zeros((B, H, 6))
-
-    interp = jax.default_backend() != "tpu"
-    a = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                             interpret=interp, fused=False
-                             ).solve(dp, cp, q0s, xi0s, us0s)
-    b = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                             interpret=interp, fused=True
-                             ).solve(dp, cp, q0s, xi0s, us0s)
-    np.testing.assert_allclose(np.asarray(b.us), np.asarray(a.us), atol=1e-12)
-    np.testing.assert_allclose(np.asarray(b.J_opt), np.asarray(a.J_opt),
-                               rtol=1e-12)
-    np.testing.assert_allclose(np.asarray(b.grad_norm),
-                               np.asarray(a.grad_norm), rtol=1e-10)
+def test_pipeline_drone_gravity():
+    """The gravity/drone family (nu = 4) through the pipeline reproduces
+    the generic engine's iterates."""
+    H, B, ITERS = 20, 3, 3
+    model, params, q0, xi0, nu = _problem(H, gravity=True)
+    cp, dp = params["cost"], params["dyn"]
+    q0s, xi0s, us0s = _batch(q0, xi0, B, H, nu, seed=3)
+    ref = FastBatchSolver(model, N=H, iterations=ITERS).solve(
+        params, q0s, xi0s, us0s, cp.q_ref, cp.xi_ref)
+    out = PipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
+                               gravity=True).solve(dp, cp, q0s, xi0s, us0s)
+    np.testing.assert_allclose(np.asarray(out.us), np.asarray(ref.us),
+                               atol=5e-4, rtol=1e-4)
 
 
-@pytest.mark.slow
-def test_pipeline_fused_drone_gravity():
-    """Fused layout on the drone family (gravity + nu=4)."""
-    data, solver, params, x0, us0, _ = build_benchmark("drone_racing", True)
-    H, B, ITERS = 16, 2, 3
-    cp = params["cost"]
-    cut = lambda a: a[: H + 1]
-    cp = cp._replace(q_ref=cut(cp.q_ref), q_ref_inv=cut(cp.q_ref_inv),
-                     Ad_ref=cut(cp.Ad_ref), xi_ref=cut(cp.xi_ref))
-    dp = params["dyn"]
-
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-
-    dq = 0.03 * jax.random.normal(jax.random.PRNGKey(5), (B, 6))
-    q0s = SE3.normalize(cp.q_ref[0][None] @ SE3.exp(dq))
-    xi0s = jnp.broadcast_to(cp.xi_ref[0], (B, 6))
-    us0s = jnp.zeros((B, H, 4))
-
-    interp = jax.default_backend() != "tpu"
-    a = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                             interpret=interp, gravity=True, fused=False
-                             ).solve(dp, cp, q0s, xi0s, us0s)
-    b = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                             interpret=interp, gravity=True, fused=True
-                             ).solve(dp, cp, q0s, xi0s, us0s)
-    np.testing.assert_allclose(np.asarray(b.us), np.asarray(a.us), atol=1e-12)
-    np.testing.assert_allclose(np.asarray(b.J_opt), np.asarray(a.J_opt),
-                               rtol=1e-12)
-
-@pytest.mark.slow
-def test_pipeline_sublane_layout_matches_lane():
-    """sublanes=8 (batch packed over both vreg axes, the round-5 VPU-
-    utilization layout) reproduces the lane layout's iterates bit-for-bit
-    on us/qs/xis; J/grad agree to f32 reduction-order noise.  Covers
-    unconstrained and AL paths, fused and unfused, tiled and untiled."""
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-
-    data, solver, params, x0, us0, _ = build_benchmark("se3_tracking", True)
-    H, B, ITERS = 12, 16, 4
-    cp = params["cost"]
-    cut = lambda a: a[: H + 1]
-    cp = cp._replace(q_ref=cut(cp.q_ref), q_ref_inv=cut(cp.q_ref_inv),
-                     Ad_ref=cut(cp.Ad_ref), xi_ref=cut(cp.xi_ref))
-    params = {**params, "cost": cp}
-    to32 = lambda t: jax.tree.map(
-        lambda x: jnp.asarray(x, jnp.float32)
-        if hasattr(x, "dtype") and x.dtype == jnp.float64 else x, t)
-    params = to32(params)
-    cp = params["cost"]
-    dp = params["dyn"]
-
-    dq = 0.05 * jax.random.normal(jax.random.PRNGKey(3), (B, 6), jnp.float32)
-    q0s = SE3.normalize(cp.q_ref[0][None] @ SE3.exp(dq))
-    xi0s = jnp.broadcast_to(cp.xi_ref[0], (B, 6))
-    us0s = jnp.zeros((B, H, 6), jnp.float32)
-    lmbd = jnp.asarray(np.abs(np.random.default_rng(0).normal(
-        size=(B, H + 1, 12))), jnp.float32)
-    imu = jnp.full((B, H + 1, 12), jnp.float32(0.5))
-    al = (np.full(6, -5.0), np.full(6, 5.0), lmbd, imu)
-
-    interp = jax.default_backend() != "tpu"
-    for al_arg in (None, al):
-        for bt, fused in ((None, True), (8, True), (None, False)):
-            p1 = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                                      interpret=interp, batch_tile=bt,
-                                      fused=fused)
-            p8 = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                                      interpret=interp, batch_tile=bt,
-                                      fused=fused, sublanes=8)
-            a = p1.solve(dp, cp, q0s, xi0s, us0s, al=al_arg)
-            b = p8.solve(dp, cp, q0s, xi0s, us0s, al=al_arg)
-            for f in ("us", "qs", "xis"):
-                np.testing.assert_allclose(
-                    np.asarray(getattr(a, f)), np.asarray(getattr(b, f)),
-                    atol=1e-6, err_msg=f"{f} al={al_arg is not None} "
-                    f"bt={bt} fused={fused}")
-            for f in ("J_opt", "grad_norm"):
-                np.testing.assert_allclose(
-                    np.asarray(getattr(a, f)), np.asarray(getattr(b, f)),
-                    rtol=1e-4, atol=1e-5)
+def _lane_inputs(H, B, gravity):
+    """One iteration's lane-layout inputs for the two recursions."""
+    _, params, q0, xi0, nu = _problem(H, gravity=gravity)
+    cp, dp = params["cost"], params["dyn"]
+    q0s, xi0s, us0s = _batch(q0, xi0, B, H, nu, seed=1)
+    us0s = us0s + 0.1
+    pipe = PipelineSolver(N=H, iterations=1, dt=float(dp.dt),
+                                gravity=gravity)
+    qR, qp, xi, us, refs, consts, term_refs = pipe._prepare(
+        dp, cp, q0s, xi0s, us0s)
+    lin = pipe._linearize_lane(qR, qp, xi, us, refs, consts)
+    lu = 2.0 * jnp.einsum("ij,njb->nib", cp.R, us)
+    term = (qR[-1], qp[-1], xi[-1]) + term_refs
+    return pipe, (qR, qp, xi, us, refs, consts, lin, lu, term)
 
 
-def test_sublane_pack_unpack_roundtrip_and_tile_mapping():
-    """_pack/_unpack are mutually inverse, and a packed lane tile's
-    (S, bt/S) block holds exactly the same bt problems as the lane
-    layout's contiguous tile (the property the BlockSpec index maps
-    rely on)."""
-    B, bt, S = 64, 16, 8
-    p = PallasPipelineSolver(N=4, iterations=1, dt=0.01, interpret=True,
-                             batch_tile=bt, sublanes=S)
-    x = jnp.arange(5 * 3 * B, dtype=jnp.float32).reshape(5, 3, B)
-    y = p._pack(x)
-    assert y.shape == (5, 3, S, B // S)
-    np.testing.assert_array_equal(np.asarray(p._unpack(y)), np.asarray(x))
-    # tile k of the packed lanes covers global elements [k*bt, (k+1)*bt)
-    btL = bt // S
-    yn = np.asarray(y)
-    for k in range(B // bt):
-        blk = yn[..., :, k * btL:(k + 1) * btL]           # (5, 3, S, btL)
-        want = np.asarray(x)[..., k * bt:(k + 1) * bt].reshape(5, 3, S, btL)
-        np.testing.assert_array_equal(blk, want)
+def _both(pipe, fn):
+    """fn evaluated with the kernels and with the scans."""
+    outs = []
+    for kernels in (True, False):
+        pipe.kernels = kernels
+        outs.append(jax.tree.map(np.asarray, fn(pipe)))
+    return outs
+
+
+# B = 37: the lane count is a multiple of nothing (the CUDA launch rounds
+# the grid up and masks the tail lanes)
+@pytest.mark.parametrize("gravity", [False, True])
+def test_backward_kernel_matches_scan(gravity):
+    pipe, (_, _, _, _, _, consts, lin, lu, term) = _lane_inputs(8, 37,
+                                                                gravity)
+    got, ref = _both(pipe, lambda p: p._backward_lane(lin, lu, term, consts))
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=1e-5,
+                                   atol=1e-5 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("gravity", [False, True])
+def test_rollout_kernel_matches_scan(gravity):
+    pipe, (qR, qp, xi, us, refs, consts, lin, lu, term) = _lane_inputs(
+        8, 37, gravity)
+    pipe.kernels = False
+    k, K, _, _ = pipe._backward_lane(lin, lu, term, consts)
+    got, ref = _both(pipe, lambda p: p._rollout_linearize_lane(
+        qR, qp, xi, us, k, K, lin, refs, consts))
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(ref)):
+        assert a.shape == b.shape
+        # the post-rollout defect is rounding noise: scale by the state
+        scale = max(np.abs(b).max(), np.abs(np.asarray(xi)).max())
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=2e-5 * scale)
+
+
+def _bad_lanes(a):
+    """Lanes (trailing axis) holding any non-finite entry."""
+    a = np.asarray(a)
+    return np.flatnonzero(~np.isfinite(a.reshape(-1, a.shape[-1])).all(0))
+
+
+@pytest.mark.parametrize("gravity", [False, True])
+def test_kernels_match_scans_on_a_nan_lane(gravity):
+    """A NaN input poisons the same lanes in the kernel as in the scan (the
+    kernel folds 0*x to 0, so single entries may differ, not lanes), and
+    leaves every other lane as the scan computes it."""
+    B = 37
+    pipe, (qR, qp, xi, us, refs, consts, lin, lu, term) = _lane_inputs(
+        8, B, gravity)
+    lin_nan = dict(lin, lx=lin["lx"].at[3, 2, 5].set(jnp.nan))
+    got_b, ref_b = _both(pipe, lambda p: p._backward_lane(
+        lin_nan, lu, term, consts))
+    pipe.kernels = False
+    k, K, _, _ = pipe._backward_lane(lin, lu, term, consts)
+    us_nan = us.at[2, 1, 9].set(jnp.nan)
+    got_r, ref_r = _both(pipe, lambda p: p._rollout_linearize_lane(
+        qR, qp, xi, us_nan, k, K, lin, refs, consts))
+    for got, ref, lane in ((got_b, ref_b, 5), (got_r, ref_r, 9)):
+        assert any(_bad_lanes(b).size for b in jax.tree.leaves(ref))
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(ref)):
+            np.testing.assert_array_equal(_bad_lanes(a), _bad_lanes(b))
+            assert set(_bad_lanes(b)) <= {lane}
+            keep = np.arange(B) != lane
+            np.testing.assert_allclose(
+                a[..., keep], b[..., keep], rtol=1e-5,
+                atol=2e-5 * max(np.abs(b[..., keep]).max(),
+                                np.abs(np.asarray(xi)).max()))
+
+
+def test_pipeline_kernels_match_scans():
+    """Whole solves: generated kernels vs scans, AL terms included."""
+    H, B, ITERS = 10, 5, 3
+    _, params, q0, xi0, nu = _problem(H)
+    cp, dp = params["cost"], params["dyn"]
+    q0s, xi0s, us0s = _batch(q0, xi0, B, H, nu, seed=2)
+    al = (-np.full(6, 20.0), np.full(6, 20.0),
+          np.zeros((B, H + 1, 12)), np.full((B, H + 1, 12), 1e-2))
+    outs = [PipelineSolver(H, ITERS, float(dp.dt), kernels=k).solve(
+        dp, cp, q0s, xi0s, us0s, al=al) for k in (True, False)]
+    np.testing.assert_allclose(np.asarray(outs[0].us),
+                               np.asarray(outs[1].us), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(outs[0].J_opt),
+                               np.asarray(outs[1].J_opt), rtol=1e-5)
+
+
+def test_kernel_source_folds_constants():
+    """Identity and zero blocks cost nothing in the generated code: a step
+    multiplying by the identity emits no multiply, and a structurally zero
+    output is stored as a literal."""
+    B, N = 4, 3
+
+    def init(c):
+        return c["x0"], ()
+
+    def step(c, carry, x):
+        eye = ll._eye3(carry.dtype, carry.shape[2:])
+        nxt = ll.matmul3(eye, carry) + x["dR"]
+        return nxt, dict(R=nxt, zero=0.0 * nxt)
+
+    consts = dict(x0=jnp.ones((3, 3, B), jnp.float32))
+    xs = dict(dR=jnp.ones((N, 3, 3, B), jnp.float32))
+    src = lanewise.kernel_source("t", step, init, consts, xs)[0]
+    body = src[src.index("for (long long i"):src.index("#ifdef __CUDACC__\n__global__")]
+    assert not re.search(r"\bv\d+ \* |\* v\d+\b", body)
+    assert body.count("= (float)0x0.0p+0f;") == 9
+    ys, _ = lanewise.lane_scan(step, init, consts, xs, kernel=True)
+    ref, _ = lanewise.lane_scan(step, init, consts, xs)
+    np.testing.assert_array_equal(np.asarray(ys["R"]), np.asarray(ref["R"]))
+    np.testing.assert_array_equal(np.asarray(ys["zero"]), 0.0)
+
+
+def test_kernel_source_rejects_lane_mixing():
+    """Values must keep the batch on the trailing axis."""
+    def init(c):
+        return c["x"], ()
+
+    def step(c, carry, x):
+        return carry, dict(s=jnp.sum(carry, axis=-1, keepdims=True)
+                           + 0.0 * carry)
+
+    with pytest.raises(NotImplementedError, match="lane axis"):
+        lanewise.kernel_source(
+            "t", step, init, dict(x=jnp.ones((2, 4))),
+            dict(y=jnp.ones((3, 2, 4))))
+
+
+def test_kernel_target_choice(monkeypatch):
+    assert platform.kernel_platform() == "cpu"
+    assert not PipelineSolver(4, 1, 0.01).kernels
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert platform.kernel_platform() == "cuda"
+    assert PipelineSolver(4, 1, 0.01).kernels
+    monkeypatch.setattr(jax, "default_backend", lambda: "metal")
+    with pytest.raises(RuntimeError, match="no kernel target"):
+        platform.kernel_platform()
+
+
+def test_bench_problem_matches_golden():
+    """The in-repo bench problem at f64 converges to the committed golden
+    (scripts/gen_bench_golden.py) through the batched engine."""
+    model, params, q0, xi0, q_ref, xi_ref = se3_bench.build_problem(
+        jnp.float64)
+    gq0, gxi0, gus = se3_bench.load_golden()
+    np.testing.assert_array_equal(np.asarray(q0), gq0)
+    np.testing.assert_array_equal(np.asarray(xi0), gxi0)
+    N = se3_bench.HORIZON
+    out = FastBatchSolver(model, N=N, iterations=12).solve(
+        params, q0[None], xi0[None], jnp.zeros((1, N, 6)),
+        jnp.asarray(q_ref), jnp.asarray(xi_ref))
+    assert float(out.grad_norm[0]) < 1e-8
+    np.testing.assert_allclose(np.asarray(out.us[0]), gus, atol=1e-6)
+
+
+def test_backward_step_is_riccati_stage():
+    """The recursion step is `riccati_stage` with the constant Fu block."""
+    _, (_, _, _, _, _, consts, lin, lu, term) = _lane_inputs(6, 5, False)
+    c = dict(zip(("qRN", "qpN", "xiN", "RbiRN", "RbipN", "AdbN", "xibN",
+                  "W1N", "W2N"), term), Fu=consts["Fu"], Luu=consts["Luu"])
+    (Vx, Vxx), lN = pipeline.backward_init(c)
+    x = {k: v[-1] for k, v in dict(Fx=lin["Fx"], d=lin["d"], lx=lin["lx"],
+                                   lu=lu, lxx=lin["lxx"]).items()}
+    _, y = functools.partial(pipeline.backward_step, nu=6, glow=False)(
+        c, (Vx, Vxx), x)
+    fu2 = consts["Fu"][6:]
+    k, K, Qu, _, _ = pipeline.riccati_stage(
+        x["Fx"], x["d"], x["lx"], x["lu"], x["lxx"], fu2,
+        ll.transpose(fu2), consts["Luu"], Vx, Vxx, nu=6, glow=False)
+    np.testing.assert_array_equal(np.asarray(y["k"]), np.asarray(k))
+    np.testing.assert_array_equal(np.asarray(y["K"]), np.asarray(K))
+    np.testing.assert_array_equal(np.asarray(y["gvec"]), np.asarray(Qu))

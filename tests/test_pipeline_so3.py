@@ -11,14 +11,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SO3
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import (
+from trajectory_optimization_matrix_lie_groups.ops.group import SO3
+from trajectory_optimization_matrix_lie_groups.solvers.batched import (
     FastBatchSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.pipeline_so3 import (
+from trajectory_optimization_matrix_lie_groups.solvers.pipeline_so3 import (
     SO3PipelineSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
+from trajectory_optimization_matrix_lie_groups.tasks.parity import (
     build_benchmark,
 )
 
@@ -53,72 +53,14 @@ def test_so3_pipeline_matches_fast_batch(name, pendulum):
     model, params, q0s, xi0s, us0s = _setup(name, H, B, seed=0)
     cp, dp = params["cost"], params["dyn"]
 
-    interp = jax.default_backend() != "tpu"
-    fast = FastBatchSolver(model, N=H, iterations=ITERS, use_pallas=False)
+    fast = FastBatchSolver(model, N=H, iterations=ITERS)
     ref = fast.solve(params, q0s, xi0s, us0s, cp.q_ref, cp.xi_ref)
 
     pipe = SO3PipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                             pendulum=pendulum, interpret=interp)
+                             pendulum=pendulum)
     out = pipe.solve(dp, cp, q0s, xi0s, us0s)
 
     np.testing.assert_allclose(np.asarray(out.us), np.asarray(ref.us),
                                atol=5e-4, rtol=1e-4)
     np.testing.assert_allclose(np.asarray(out.J_opt), np.asarray(ref.J_opt),
                                rtol=1e-4)
-
-
-@pytest.mark.slow
-def test_so3_pipeline_batch_tile_and_chunk():
-    """(batch_tile, stage_chunk) grid reproduces the full-batch pipeline."""
-    H, B, ITERS = 16, 4, 3
-    model, params, q0s, xi0s, us0s = _setup("pendulum_swingup", H, B, seed=3)
-    cp, dp = params["cost"], params["dyn"]
-    interp = jax.default_backend() != "tpu"
-    mk = lambda bt, ck: SO3PipelineSolver(
-        N=H, iterations=ITERS, dt=float(dp.dt), pendulum=True,
-        interpret=interp, batch_tile=bt, stage_chunk=ck)
-    a = mk(None, 1).solve(dp, cp, q0s, xi0s, us0s)
-    b = mk(2, 2).solve(dp, cp, q0s, xi0s, us0s)
-    np.testing.assert_allclose(np.asarray(a.us), np.asarray(b.us), atol=1e-12)
-    # J is reduced host-side from per-stage values whose grid-visit order
-    # differs between the two layouts: allow 1 f32 ulp
-    np.testing.assert_allclose(np.asarray(a.J_opt), np.asarray(b.J_opt),
-                               rtol=3e-7)
-
-
-@pytest.mark.slow
-def test_so3_pipeline_sublane_layout_matches_lane():
-    """sublanes=8 reproduces the lane layout's iterates for both SO(3)
-    families (free attitude + pendulum) — the round-5 packed layout."""
-    from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SO3
-    from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
-        build_benchmark,
-        cut_reference,
-    )
-
-    for name, pend in (("so3_tracking", False), ("pendulum_swingup", True)):
-        data, solver, params, x0, us0, _ = build_benchmark(name, True)
-        H, B, ITERS = 10, 16, 4
-        params = cut_reference(params, H)
-        to32 = lambda t: jax.tree.map(
-            lambda x: jnp.asarray(x, jnp.float32)
-            if hasattr(x, "dtype") and x.dtype == jnp.float64 else x, t)
-        params = to32(params)
-        cp = params["cost"]
-        dp = params["dyn"]
-        dq = 0.05 * jax.random.normal(jax.random.PRNGKey(1), (B, 3),
-                                      jnp.float32)
-        q0s = SO3.normalize(cp.q_ref[0][None] @ SO3.exp(dq))
-        xi0s = jnp.broadcast_to(cp.xi_ref[0], (B, 3))
-        us0s = jnp.zeros((B, H, 3), jnp.float32)
-        interp = jax.default_backend() != "tpu"
-        p1 = SO3PipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                               pendulum=pend, interpret=interp)
-        p8 = SO3PipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                               pendulum=pend, interpret=interp, sublanes=8)
-        a = p1.solve(dp, cp, q0s, xi0s, us0s)
-        b = p8.solve(dp, cp, q0s, xi0s, us0s)
-        for f in ("us", "qs", "xis"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(a, f)), np.asarray(getattr(b, f)),
-                atol=1e-6, err_msg=f"{name} {f}")

@@ -6,17 +6,17 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.ops.group import SE3
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.batched import (
+from trajectory_optimization_matrix_lie_groups.ops.group import SE3
+from trajectory_optimization_matrix_lie_groups.solvers.batched import (
     FastBatchSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.pipeline import (
-    PallasPipelineSolver,
+from trajectory_optimization_matrix_lie_groups.solvers.pipeline import (
+    PipelineSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.polish import (
+from trajectory_optimization_matrix_lie_groups.solvers.polish import (
     HighPrecisionSolver,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
+from trajectory_optimization_matrix_lie_groups.tasks.parity import (
     build_benchmark,
 )
 
@@ -42,12 +42,10 @@ def test_polish_recovers_f64_accuracy():
     us0s = jnp.zeros((B, H, 6))
 
     # f64 fixed point (well-converged reference answer)
-    gold = FastBatchSolver(model, N=H, iterations=30, use_pallas=False).solve(
+    gold = FastBatchSolver(model, N=H, iterations=30).solve(
         params, q0s, xi0s, us0s, cp.q_ref, cp.xi_ref)
 
-    interp = jax.default_backend() != "tpu"
-    f32only = PallasPipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt),
-                                   interpret=interp)
+    f32only = PipelineSolver(N=H, iterations=ITERS, dt=float(dp.dt))
     p32 = jax.tree.map(
         lambda x: x.astype(jnp.float32)
         if hasattr(x, "dtype") and jnp.issubdtype(x.dtype, jnp.floating) else x,
@@ -57,7 +55,7 @@ def test_polish_recovers_f64_accuracy():
                         us0s.astype(jnp.float32))
 
     hp = HighPrecisionSolver(model, N=H, iterations=ITERS, dt=float(dp.dt),
-                             polish_iters=2, interpret=interp)
+                             polish_iters=2)
     out = hp.solve(params, q0s, xi0s, us0s)
     assert out.us.dtype == jnp.float64
 

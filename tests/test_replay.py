@@ -9,8 +9,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.ops import se3
-from trajectory_optimization_matrix_lie_groups_tpu.viz.replay import (
+from trajectory_optimization_matrix_lie_groups.ops import se3
+from trajectory_optimization_matrix_lie_groups.viz.replay import (
     _rpy_matrix,
     load_urdf,
     replay_trajectory,
@@ -101,7 +101,7 @@ def test_urdf_joint_chain_pose_composition(tmp_path):
 def test_rpy_matrix_convention():
     """URDF rpy is extrinsic x-y-z == Rz(y) Ry(p) Rx(r)."""
     r, p, y = 0.3, -0.2, 0.9
-    from trajectory_optimization_matrix_lie_groups_tpu.ops import so3
+    from trajectory_optimization_matrix_lie_groups.ops import so3
 
     Rx = np.asarray(so3.exp(jnp.array([r, 0, 0])))
     Ry = np.asarray(so3.exp(jnp.array([0, p, 0])))

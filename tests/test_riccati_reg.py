@@ -12,7 +12,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.solvers import riccati
+from trajectory_optimization_matrix_lie_groups.solvers import riccati
 
 RNG = np.random.default_rng(11)
 

@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from trajectory_optimization_matrix_lie_groups_tpu.parallel.riccati_sharded import (
+from trajectory_optimization_matrix_lie_groups.parallel.riccati_sharded import (
     sharded_parallel_backward,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.solvers import riccati
+from trajectory_optimization_matrix_lie_groups.solvers import riccati
 
 pytestmark = pytest.mark.multidevice
 
@@ -96,13 +96,13 @@ def test_lie_ilqr_backward_associative_sharded():
     the single-device associative solve (2-device mesh, small problem)."""
     import dataclasses
 
-    from trajectory_optimization_matrix_lie_groups_tpu.parallel import (
+    from trajectory_optimization_matrix_lie_groups.parallel import (
         riccati_sharded,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.solvers.lie_ilqr import (
+    from trajectory_optimization_matrix_lie_groups.solvers.lie_ilqr import (
         LieILQR,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import (
+    from trajectory_optimization_matrix_lie_groups.tasks.parity import (
         build_benchmark,
     )
 

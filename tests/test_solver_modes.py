@@ -8,8 +8,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.lie_ilqr import LieILQR
-from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import build_benchmark
+from trajectory_optimization_matrix_lie_groups.solvers.lie_ilqr import LieILQR
+from trajectory_optimization_matrix_lie_groups.tasks.parity import build_benchmark
 
 
 @pytest.mark.parity

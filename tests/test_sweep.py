@@ -7,16 +7,16 @@ import pytest
 
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.parallel import (
+from trajectory_optimization_matrix_lie_groups.parallel import (
     BatchSolver,
     make_batch_mesh,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.parallel.sweep import (
+from trajectory_optimization_matrix_lie_groups.parallel.sweep import (
     build_x0_batch,
     run_sweep,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.solvers.lie_ilqr import LieILQR
-from trajectory_optimization_matrix_lie_groups_tpu.tasks.parity import build_benchmark
+from trajectory_optimization_matrix_lie_groups.solvers.lie_ilqr import LieILQR
+from trajectory_optimization_matrix_lie_groups.tasks.parity import build_benchmark
 
 pytestmark = pytest.mark.multidevice
 
@@ -59,9 +59,9 @@ def test_build_x0_batch_angles():
 
 def test_rollout_sweep_matches_serial():
     """Batched open-loop rollout sweep == a serial per-step rollout."""
-    from trajectory_optimization_matrix_lie_groups_tpu.models import dynamics
-    from trajectory_optimization_matrix_lie_groups_tpu.ops import se3
-    from trajectory_optimization_matrix_lie_groups_tpu.parallel.sweep import (
+    from trajectory_optimization_matrix_lie_groups.models import dynamics
+    from trajectory_optimization_matrix_lie_groups.ops import se3
+    from trajectory_optimization_matrix_lie_groups.parallel.sweep import (
         run_rollout_sweep,
     )
 

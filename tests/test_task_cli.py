@@ -4,7 +4,7 @@ import json
 
 import pytest
 
-from trajectory_optimization_matrix_lie_groups_tpu.tasks.run import main
+from trajectory_optimization_matrix_lie_groups.tasks.run import main
 
 
 @pytest.mark.parity
@@ -37,7 +37,7 @@ def test_cli_dynamics_sim(capsys):
 
 @pytest.mark.parity
 def test_cli_mpc_native(capsys):
-    from trajectory_optimization_matrix_lie_groups_tpu import native
+    from trajectory_optimization_matrix_lie_groups import native
 
     if native.LIB is None:
         pytest.skip("no native toolchain")
@@ -72,7 +72,7 @@ def test_cli_benchmark_compare(capsys, tmp_path):
     s = out["solvers"]
     # --plot writes the reference-schema result pickle (round-2 writer,
     # tasks/run.py save_benchmark_pickle call) — verify it round-trips
-    from trajectory_optimization_matrix_lie_groups_tpu.utils import (
+    from trajectory_optimization_matrix_lie_groups.utils import (
         load_benchmark_pickle,
     )
 

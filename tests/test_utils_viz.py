@@ -6,14 +6,14 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from trajectory_optimization_matrix_lie_groups_tpu.ops import se3, so3
-from trajectory_optimization_matrix_lie_groups_tpu.utils import metrics, rotations
-from trajectory_optimization_matrix_lie_groups_tpu.utils.trajectories import (
+from trajectory_optimization_matrix_lie_groups.ops import se3, so3
+from trajectory_optimization_matrix_lie_groups.utils import metrics, rotations
+from trajectory_optimization_matrix_lie_groups.utils.trajectories import (
     generate_reference,
     load_reference_triple,
     save_reference_triple,
 )
-from trajectory_optimization_matrix_lie_groups_tpu.viz.cost_landscape import (
+from trajectory_optimization_matrix_lie_groups.viz.cost_landscape import (
     pose_error_grid,
 )
 
@@ -62,7 +62,7 @@ def test_cost_landscape_grid():
 
 def test_replay_fallback(tmp_path):
     """Without rerun installed, replay degrades to the quat-pos export."""
-    from trajectory_optimization_matrix_lie_groups_tpu.viz.replay import (
+    from trajectory_optimization_matrix_lie_groups.viz.replay import (
         replay_trajectory,
     )
 
@@ -78,8 +78,8 @@ def test_replay_fallback(tmp_path):
 
 def test_checkpoint_roundtrip(tmp_path):
     """Solver-state pytrees (incl. NamedTuples) round-trip through orbax."""
-    from trajectory_optimization_matrix_lie_groups_tpu.models import costs
-    from trajectory_optimization_matrix_lie_groups_tpu.utils import checkpoint
+    from trajectory_optimization_matrix_lie_groups.models import costs
+    from trajectory_optimization_matrix_lie_groups.utils import checkpoint
 
     state = {
         "us": jnp.arange(12.0).reshape(2, 6),
@@ -103,13 +103,13 @@ def test_interactive_viewers(tmp_path):
     """Slider viewers construct and scrub headlessly; animation writes a gif."""
     import jax.numpy as jnp
 
-    from trajectory_optimization_matrix_lie_groups_tpu.models import dynamics
-    from trajectory_optimization_matrix_lie_groups_tpu.ops import se3
-    from trajectory_optimization_matrix_lie_groups_tpu.parallel.sweep import (
+    from trajectory_optimization_matrix_lie_groups.models import dynamics
+    from trajectory_optimization_matrix_lie_groups.ops import se3
+    from trajectory_optimization_matrix_lie_groups.parallel.sweep import (
         SweepResult,
         run_rollout_sweep,
     )
-    from trajectory_optimization_matrix_lie_groups_tpu.viz import interactive
+    from trajectory_optimization_matrix_lie_groups.viz import interactive
 
     J = jnp.eye(6)
     dyn = dynamics.se3_dynamics()
@@ -143,7 +143,7 @@ def test_save_benchmark_pickle_roundtrip(tmp_path):
     """Reference-schema result pickle (benchmark_SE3_tracking.py:272-345):
     a 'prob' spec entry + one entry per solver with xs/us/histories; must
     round-trip through load_benchmark_pickle with arrays intact."""
-    from trajectory_optimization_matrix_lie_groups_tpu.utils.trajectories import (
+    from trajectory_optimization_matrix_lie_groups.utils.trajectories import (
         load_benchmark_pickle,
         save_benchmark_pickle,
     )
